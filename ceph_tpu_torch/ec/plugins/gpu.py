@@ -10,10 +10,12 @@ coding matrices.
 The profile key ``device`` picks the torch device, ``cuda`` by default;
 without a card the codec raises unless the profile says ``device=cpu``,
 which runs the plain PyTorch versions (the tests do).  All seven
-jerasure-compatible techniques are registered.  reed_sol_van and
-reed_sol_r6_op ride B1; the five packet techniques need kernel B2, not
-ported yet, so on CUDA they raise NotImplementedError, and on the CPU
-they run the plain packet path.
+jerasure-compatible techniques are registered and run on the card.
+reed_sol_van and reed_sol_r6_op ride B1; the five packet techniques
+(cauchy_orig, cauchy_good, liberation, blaum_roth, liber8tion) ride
+kernel B2 (ops/packet_kernel.py) when the packet size is a multiple of
+128 bytes and kernel B3 (ops/packet_xor_kernel.py) otherwise, for
+encode, decode and the re-encode of erased parity.
 
 Beyond the reference's synchronous per-stripe API, this plugin exposes
 the batched entry points the OSD write pipeline uses to amortize
@@ -124,11 +126,17 @@ class GpuCodecMixin:
         data = np.asarray(data, dtype=np.uint8)
         if data.ndim != 3 or data.shape[1] != self.k:
             raise ValueError(f"expected [batch, k={self.k}, L] input")
-        if self.core.gf8_encode_fast():
-            return self.core.backend.apply_gf8_matrix_async(
-                self.core.coding_matrix, data)
-        return self.core.backend.apply_bitmatrix_bytes_async(
-            self.core.bitmatrix, data, self.w)
+        core = self.core
+        if core.gf8_encode_fast():
+            return core.backend.apply_gf8_matrix_async(
+                core.coding_matrix, data)
+        if core.layout == "packet":
+            # packets XOR whole, per super-word: the byte-domain apply
+            # below would give other parity than encode_batch
+            return core.backend.apply_packet_xor_async(
+                core.bitmatrix, data, core.w, core.packetsize)
+        return core.backend.apply_bitmatrix_bytes_async(
+            core.bitmatrix, data, self.w)
 
     def decode_async_supported(self) -> bool:
         """True when this geometry can ride the async device decode
@@ -273,7 +281,8 @@ class GpuCodecMixin:
         backend = self.core.backend
         pre = getattr(backend, "prewarm_geometry", None)
         if pre is not None:
-            pre(self.k, chunk_size, batches=batches, w=self.w)
+            pre(self.k, chunk_size, batches=batches, w=self.w,
+                packetsize=self.core.packetsize)
         for nb in batches:
             key = (self.device, type(self).__name__, self.k, self.m,
                    self.w, int(chunk_size), int(nb))
@@ -290,13 +299,13 @@ class GpuCodecMixin:
     def stage_batch(self, data: np.ndarray):
         """Transfer a stripe batch to device memory ahead of encode."""
         data = np.asarray(data, dtype=np.uint8)
-        return self.core.backend.stage(data, self.w)
+        return self.core.backend.stage(data, self.w, self.core.packetsize)
 
     def encode_batch_device(self, dev_data):
         """Device-resident encode: device array in, device array out (no
         host round trip) — the codec-kernel boundary.  w=8 byte-domain
-        codes ride kernel B1 (torch_engine gf8_fn), packet codes
-        packet_chain_fn, others the plain bit-plane path."""
+        codes ride kernel B1 (torch_engine gf8_fn), packet codes B2 or
+        B3 (packet_chain_fn), others the plain bit-plane path."""
         core = self.core
         if core.layout == "byte" and core.w == 8 \
                 and core.coding_matrix is not None:
@@ -313,8 +322,8 @@ class GpuCodecMixin:
         ``data_erased`` chunk ids from the staged ``chosen`` chunk
         stack [B, k, L] (device tensor in/out).  Uses the same
         signature-cached operands the OSD recovery path does
-        (torch_engine gf8_fn / packet_chain_fn — the analog of ISA-L's
-        decode-table LRU, reference
+        (torch_engine gf8_fn / packet_chain_fn, so B1, B2 or B3 — the
+        analog of ISA-L's decode-table LRU, reference
         isa/ErasureCodeIsaTableCache.cc:253-306)."""
         core = self.core
         rows_gf, rows_bits = core._decode_rows(tuple(chosen),

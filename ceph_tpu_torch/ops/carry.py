@@ -5,8 +5,14 @@ Both packages build the same numpy state: a codec's ``coding_matrix``
 erasure signature the recovery rows ``(rows_gf, rows_bits)`` of
 ``CodecCore._recovery_rows``.  These functions take that state from
 either package, check that its two halves agree, and return the
-device-resident ``Gf8Operand`` that kernel B1 reads.  The tests use them
-to hand identical matrices to the JAX codec and to the port.
+device-resident ``Gf8Operand`` that kernel B1 reads.
+
+The packet-layout codes carry their bitmatrix ([R, k*w], 0/1) into the
+``PacketOperand`` of kernel B2, and its XOR schedule (the tuple that
+``build_xor_schedule`` returns in either package) into the CSR arrays of
+kernel B3's ``ScheduleOperand``.  Each operand has a function back to
+the state it came from, for round-trip checks.  The tests use them to
+hand identical matrices to the JAX codec and to the port.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import torch
 
 from .gf8_kernel import Gf8Operand
 from .matrix import matrix_to_bitmatrix
+from .packet_kernel import PacketOperand
+from .packet_xor_kernel import ScheduleOperand
 
 
 def bitmatrix_operand(bitmatrix, k: int, device) -> Gf8Operand:
@@ -70,3 +78,67 @@ def carry_rows(rows_gf, rows_bits, device) -> Gf8Operand:
                           np.asarray(rows_bits, dtype=np.uint8)):
         raise ValueError("rows_bits does not expand rows_gf")
     return bitmatrix_operand(rows_bits, rows_gf.shape[1], device)
+
+
+def packet_operand(bitmatrix, w: int, device) -> PacketOperand:
+    """B2 operand for a packet-layout 0/1 bitmatrix [R, k*w] (an encode
+    bitmatrix or an erasure signature's decode rows): the bitmatrix and
+    its column masks, bit u of masks[g, c] = B[32g+u, c]."""
+    B = np.asarray(bitmatrix, dtype=np.uint8)
+    R, KW = B.shape
+    if R % w or KW % w or R == 0:
+        raise ValueError(f"bitmatrix {B.shape} does not fit w={w}")
+    if B.max(initial=0) > 1:
+        raise ValueError("bitmatrix entries must be 0 or 1")
+    groups = (R + 31) // 32
+    padded = np.zeros((groups * 32, KW), dtype=np.uint32)
+    padded[:R] = B
+    masks = (padded.reshape(groups, 32, KW)
+             << np.arange(32, dtype=np.uint32)[None, :, None]
+             ).sum(axis=1, dtype=np.uint32)
+    return PacketOperand(
+        bitmatrix=torch.from_numpy(B.copy()).to(device),
+        masks=torch.from_numpy(masks.view(np.int32)).to(device),
+        k=KW // w, w=int(w))
+
+
+def operand_packet_bitmatrix(operand: PacketOperand) -> np.ndarray:
+    """The bitmatrix that ``operand.masks`` encodes."""
+    masks = operand.masks.cpu().numpy().view(np.uint32)
+    bits = (masks[:, None, :] >> np.arange(32, dtype=np.uint32)
+            [None, :, None]) & 1                            # [g, u, c]
+    return bits.reshape(-1, masks.shape[1])[:operand.rows].astype(np.uint8)
+
+
+def schedule_operand(schedule, k: int, w: int, device) -> ScheduleOperand:
+    """B3 operand for an XOR schedule over k*w input packet rows: CSR
+    arrays prev [R], start [R+1], cols [nnz], all int32."""
+    schedule = tuple((int(p), tuple(int(c) for c in cols))
+                     for p, cols in schedule)
+    R = len(schedule)
+    if R == 0 or R % w:
+        raise ValueError(f"{R} schedule rows do not fit w={w}")
+    for r, (p, cols) in enumerate(schedule):
+        if not -1 <= p < r:
+            raise ValueError(f"row {r} starts from row {p}, not an "
+                             f"earlier one")
+        if any(not 0 <= c < k * w for c in cols):
+            raise ValueError(f"row {r} reads a column outside k*w = "
+                             f"{k * w}")
+    prev = np.array([p for p, _ in schedule], dtype=np.int32)
+    start = np.cumsum([0] + [len(cols) for _, cols in schedule]
+                      ).astype(np.int32)
+    cols = np.array([c for _, cs in schedule for c in cs], dtype=np.int32)
+    return ScheduleOperand(
+        schedule=schedule,
+        prev=torch.from_numpy(prev).to(device),
+        start=torch.from_numpy(start).to(device),
+        cols=torch.from_numpy(cols).to(device), k=int(k), w=int(w))
+
+
+def operand_schedule(operand: ScheduleOperand) -> tuple:
+    """The schedule that the operand's CSR arrays encode."""
+    prev, start, cols = (t.cpu().numpy().tolist() for t in
+                         (operand.prev, operand.start, operand.cols))
+    return tuple((p, tuple(cols[start[r]:start[r + 1]]))
+                 for r, p in enumerate(prev))

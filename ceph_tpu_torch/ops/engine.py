@@ -13,10 +13,10 @@ Two data layouts, matching the reference's two kernel families:
   liberation family; reference ErasureCodeJerasure.cc:265).
 
 Both layouts reduce to one primitive — a 0/1 matrix applied over GF(2) to
-a stack of bit-rows — which is exactly what the torch engine
-(ops/torch_engine.py) executes through one GF(2^8) bit-plane kernel on
-the card.  The numpy backend here is the bit-exact CPU reference
-oracle.
+a stack of bit-rows — which the torch engine (ops/torch_engine.py)
+executes on the card through kernel B1 for the byte layout and kernels
+B2/B3 for the packet layout.  The numpy backend here is the bit-exact CPU
+reference oracle.
 """
 from __future__ import annotations
 

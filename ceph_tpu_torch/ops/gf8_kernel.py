@@ -9,35 +9,29 @@ the plain PyTorch version, ``gf8_apply_plain``: bit-plane unpack, a mod-2
 product, repack.
 
 The CUDA source is compiled with nvcc at first use into build/kernels/
-at the repo root and loaded with ctypes; a missing nvcc or a failed build
-raises.  ``launches`` counts the kernel launches.
+at the repo root and loaded with ctypes (ops/cuda_build.py); a missing
+nvcc or a failed build raises.  ``launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "gf8_bitplane.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libgf8_bitplane.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from .cuda_build import KernelLibrary, launch
+
+_LIB = KernelLibrary(
+    "gf8_bitplane.cu", "gf8_bitplane_apply",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+build = _LIB.build
 # shared memory holds cols [m_out, k, 8] of uint32: stay under the
 # 48 KiB a block gets without an opt-in attribute
 MAX_COLS = (48 * 1024) // 4
 
 launches = 0
-
-_lib: Optional[ctypes.CDLL] = None
-_lock = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -61,51 +55,6 @@ class Gf8Operand:
     def nbytes(self) -> int:
         return (self.bitmatrix.numel() * self.bitmatrix.element_size()
                 + self.cols.numel() * self.cols.element_size())
-
-
-def _nvcc() -> str:
-    cand = shutil.which("nvcc")
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    if cand is None and os.path.exists(os.path.join(home, "bin", "nvcc")):
-        cand = os.path.join(home, "bin", "nvcc")
-    if cand is None:
-        raise RuntimeError("nvcc not found: kernel B1 cannot be built")
-    return cand
-
-
-def build(verbose: bool = False) -> str:
-    """Compile csrc/gf8_bitplane.cu into a shared library (skipped when
-    the library is newer than the source).  Returns the library path;
-    raises on any build failure."""
-    if (os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(SOURCE)):
-        return _LIB_PATH
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.gf8_bitplane_apply
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_int,
-                           ctypes.c_longlong, ctypes.c_void_p]
-            _lib = lib
-        return _lib
 
 
 def gf8_apply_plain(bitmatrix, data: torch.Tensor) -> torch.Tensor:
@@ -171,13 +120,7 @@ def gf8_apply(operand: Gf8Operand, data: torch.Tensor,
                           device=data.device)
     if out.numel() == 0:
         return out
-    lib = _load()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = lib.gf8_bitplane_apply(
-            operand.cols.data_ptr(), data.data_ptr(), out.data_ptr(),
-            batch, k, operand.m_out, L, stream)
-    if err != 0:
-        raise RuntimeError(f"B1 launch failed: CUDA error {err}")
+    launch(_LIB, data.device, operand.cols.data_ptr(), data.data_ptr(),
+           out.data_ptr(), batch, k, operand.m_out, L)
     launches += 1
     return out

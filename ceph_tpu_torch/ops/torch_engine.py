@@ -9,9 +9,12 @@ decode (per-erasure-signature recovery rows, cached like ISA-L's decode
 table LRU) and the parity delta.  On the CPU the same wrapper runs its
 plain PyTorch version.
 
-Codes with w = 16 or 32 and the packet-layout (cauchy/liberation) codes
-apply in plain torch ops; the packet kernels B2/B3 are not ported yet, so
-``packet_chain_fn`` raises on CUDA.
+The packet-layout (cauchy/liberation) codes XOR whole packets per a 0/1
+bitmatrix.  On the card that is kernel B2 (ops/packet_kernel.py,
+csrc/packet_bitplane.cu) for packets that are a multiple of 128 bytes and
+kernel B3 (ops/packet_xor_kernel.py, csrc/packet_xor.cu), which runs the
+bitmatrix's XOR schedule, for every other packet size, as the reference
+routes them.  Codes with w = 16 or 32 apply in plain torch ops.
 
 Shapes are bucketed (batch to the next power of two, length to a
 multiple of 128) so staging rings and cached operands stay few while the
@@ -31,11 +34,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .carry import bitmatrix_operand, carry_rows
+from .carry import (bitmatrix_operand, carry_rows, packet_operand,
+                    schedule_operand)
 from .gf8_kernel import gf8_apply
 from .matrix import matrix_to_bitmatrix
+from .packet_kernel import packet_apply
+from .packet_xor_kernel import packet_xor
 
 LENGTH_QUANTUM = 128
+# packet sizes that are a multiple of this take kernel B2, others B3
+B2_PACKET_QUANTUM = 128
 
 
 def resolve_device(device) -> torch.device:
@@ -106,8 +114,30 @@ class ChainLRU:
 
 
 # ---------------------------------------------------------------------------
-# plain torch applies (no TPU kernel behind them in the JAX package)
+# XOR schedules and plain torch applies
 # ---------------------------------------------------------------------------
+
+def build_xor_schedule(B: np.ndarray) -> tuple:
+    """Greedy delta schedule for a GF(2) bitmatrix: output row i is
+    either XOR-ed from scratch, or derived from an earlier output row
+    XOR the differing inputs — jerasure's 'smart scheduling' for the
+    cauchy/liberation families (reference ErasureCodeJerasure.cc:265
+    jerasure_smart_bitmatrix_to_schedule).  Entry = (prev_row_or_-1,
+    (input cols to XOR...)); kernel B3 runs it."""
+    sets = [frozenset(np.nonzero(np.asarray(r))[0].tolist()) for r in B]
+    sched = []
+    for i, s in enumerate(sets):
+        best_j, best_cost = -1, len(s)
+        for j in range(i):
+            d = len(sets[j] ^ s) + 1
+            if d < best_cost:
+                best_cost, best_j = d, j
+        if best_j >= 0:
+            sched.append((best_j, tuple(sorted(sets[best_j] ^ s))))
+        else:
+            sched.append((-1, tuple(sorted(s))))
+    return tuple(sched)
+
 
 def _matmul_mod2(B: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """B [R, C] @ bits [batch, C, L] mod 2 -> uint8 [batch, R, L].  CUDA
@@ -136,26 +166,6 @@ def _apply_byte_domain_plain(B: torch.Tensor, data: torch.Tensor,
     out_words = (out_bits << shifts.view(w, 1)).sum(dim=2)  # [b, m, Lw]
     parts = [(out_words >> (8 * i)) & 0xFF for i in range(wbytes)]
     return torch.stack(parts, dim=-1).reshape(batch, m, L).to(torch.uint8)
-
-
-def _apply_packet_domain(B: torch.Tensor, data: torch.Tensor, w: int,
-                         packetsize: int) -> torch.Tensor:
-    """uint8 [batch, k, L] -> uint8 [batch, R/w, L] for a packet-layout
-    bitmatrix code (L = nw * w * packetsize)."""
-    batch, k, L = data.shape
-    sw = w * packetsize
-    nw = L // sw
-    x = data.reshape(batch, k, nw, w, packetsize).permute(0, 2, 1, 3, 4)
-    x = x.reshape(batch * nw, k * w, packetsize)
-    shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
-    bits = (x.unsqueeze(-1) >> shifts) & 1           # [.., k*w, ps, 8]
-    out = _matmul_mod2(B, bits.reshape(batch * nw, k * w, packetsize * 8))
-    R = out.shape[1]
-    out = out.view(batch * nw, R, packetsize, 8) << shifts
-    ob = out.sum(dim=-1).to(torch.uint8)              # [.., R, ps]
-    m = R // w
-    ob = ob.view(batch, nw, m, w, packetsize).permute(0, 2, 1, 3, 4)
-    return ob.reshape(batch, m, L)
 
 
 def _round_up(x: int, q: int) -> int:
@@ -567,21 +577,29 @@ class TorchBackend:
             ab.h2d_bytes, ab.h2d_seconds = sample
         return ab
 
-    def stage(self, data: np.ndarray, w: int):
+    @staticmethod
+    def quantum(w: int, packetsize: int = 0) -> int:
+        """The chunk-length multiple a dispatch pads to: a super-word
+        (w packets) for packet-layout codes, else LENGTH_QUANTUM words."""
+        if packetsize:
+            return w * packetsize
+        return LENGTH_QUANTUM * max(1, w // 8)
+
+    def stage(self, data: np.ndarray, w: int, packetsize: int = 0):
         """Pad + transfer a [batch, k, L] host array to the device."""
-        wbytes = max(1, w // 8)
-        padded, batch, L = self._padded(data, LENGTH_QUANTUM * wbytes)
+        padded, batch, L = self._padded(data, self.quantum(w, packetsize))
         dev = self._to_device(padded)
         if self.is_cuda:
             torch.cuda.current_stream(self.device).synchronize()
         return dev, batch, L
 
     def prewarm_geometry(self, k: int, chunk_size: int,
-                         batches=(1,), w: int = 8) -> None:
+                         batches=(1,), w: int = 8,
+                         packetsize: int = 0) -> None:
         """Preallocate the staging rings a (k, chunk_size) geometry will
         dispatch, so the first client write reuses warm buffers.
         Idempotent and host-side only."""
-        Lp = _round_up(chunk_size, LENGTH_QUANTUM * max(1, w // 8))
+        Lp = _round_up(chunk_size, self.quantum(w, packetsize))
         for nb in batches:
             self.staging.ensure((_bucket_batch(max(1, int(nb))), k, Lp))
 
@@ -669,20 +687,48 @@ class TorchBackend:
         the caller via stage()); output stays on the device."""
         return self._bitmatrix_fn(B, w)(dev_data)
 
-    # -- packet layout (kernels B2/B3 not ported) ------------------------
-    def packet_chain_fn(self, B: np.ndarray, w: int, packetsize: int):
-        """[batch, k, L] -> [batch, R/w, L] for a packet-layout
-        bitmatrix.  On CUDA this needs kernel B2 (the packet-layout
-        bitmatrix apply), which is not ported yet."""
-        if self.is_cuda:
-            raise NotImplementedError(
-                "packet-layout codes on CUDA need kernel B2 "
-                "(_packet_mxu_pallas_fn), which is not ported yet")
-        return functools.partial(_apply_packet_domain,
-                                 self._device_matrix(B), w=w,
+    # -- packet layout: kernels B2 and B3 ------------------------------
+    def _packet_b2_fn(self, B: np.ndarray, w: int, packetsize: int):
+        B = np.asarray(B, dtype=np.uint8)
+        key = ("pkt", B.shape, B.tobytes(), w)
+        operand = self._chain_lru.get_or_build(
+            key, lambda: packet_operand(B, w, self.device))
+        return functools.partial(packet_apply, operand,
                                  packetsize=packetsize)
+
+    def packet_chain_fn(self, B: np.ndarray, w: int, packetsize: int):
+        """[batch, k, L] -> [batch, R/w, L] for a packet-layout bitmatrix,
+        with the kernel operand LRU-cached per bitmatrix.  Routed as the
+        reference routes it (jax_engine.py:1230-1246): packets that are a
+        multiple of B2_PACKET_QUANTUM bytes take kernel B2, every other
+        packet size takes kernel B3 on the bitmatrix's XOR schedule.  On
+        the CPU each wrapper runs its plain version."""
+        if packetsize % B2_PACKET_QUANTUM == 0:
+            return self._packet_b2_fn(B, w, packetsize)
+        B = np.asarray(B, dtype=np.uint8)
+        key = ("sched", B.shape, B.tobytes(), w)
+        operand = self._chain_lru.get_or_build(
+            key, lambda: schedule_operand(build_xor_schedule(B),
+                                          B.shape[1] // w, w, self.device))
+        return functools.partial(packet_xor, operand, packetsize=packetsize)
 
     def apply_packet_xor(self, B: np.ndarray, data: np.ndarray, w: int,
                          packetsize: int) -> np.ndarray:
+        """Packet-layout apply for encode (the coding bitmatrix) and
+        decode (an erasure signature's rows), through packet_chain_fn."""
         return self._run_sync(self.packet_chain_fn(B, w, packetsize),
                               data, w * packetsize)
+
+    def apply_packet_xor_async(self, B: np.ndarray, data: np.ndarray,
+                               w: int, packetsize: int) -> AsyncBatch:
+        """Non-blocking apply_packet_xor: packet codes' double-buffering
+        entry, on the same staging rings and ledger as the byte codes."""
+        return self._dispatch_async(self.packet_chain_fn(B, w, packetsize),
+                                    data, w * packetsize)
+
+    def apply_packet_chunks(self, B: np.ndarray, data: np.ndarray, w: int,
+                            packetsize: int) -> np.ndarray:
+        """Dense packet-layout bitmatrix apply, kernel B2 at any packet
+        size (the JAX backend's apply_packet_chunks)."""
+        return self._run_sync(self._packet_b2_fn(B, w, packetsize), data,
+                              w * packetsize)

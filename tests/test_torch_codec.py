@@ -20,7 +20,6 @@ from ceph_tpu.tools.ec_non_regression import payload
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.ops import carry
 from ceph_tpu_torch.ops import matrix as port_matrix
-from ceph_tpu_torch.ops.torch_engine import TorchBackend
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOMETRIES = [(8, 4), (4, 2), (2, 1)]
@@ -94,7 +93,9 @@ def test_delta_matches_tpu_plugin(k, m):
 
 
 @pytest.mark.parametrize("name", [
-    "tpu_k=8_m=4", "jerasure_k=8_m=4_technique=reed_sol_van"])
+    "tpu_k=8_m=4", "jerasure_k=8_m=4_technique=reed_sol_van",
+    "jerasure_k=4_m=2_technique=cauchy_good",
+    "jerasure_k=5_m=3_technique=liberation"])
 def test_corpus_vectors(name):
     d = os.path.join(REPO, "corpus", name)
     with open(os.path.join(d, "manifest.json")) as f:
@@ -182,17 +183,6 @@ def test_carry_round_trips_codec_state(k, m):
     with pytest.raises(ValueError):
         carry.carry_codec(core.coding_matrix, core.bitmatrix, k, m, 16,
                           "cpu")
-
-
-def test_packet_techniques_need_b2_on_cuda():
-    """On the CPU the packet codes run the plain path (covered above);
-    on CUDA the backend refuses them instead of falling back."""
-    be = TorchBackend("cpu")
-    be.device = torch.device("cuda", 0)
-    B = ref_matrix.matrix_to_bitmatrix(
-        ref_matrix.cauchy_good_coding_matrix(4, 2, 8), 8)
-    with pytest.raises(NotImplementedError, match="B2"):
-        be.packet_chain_fn(B, 8, 32)
 
 
 def test_default_device_is_cuda():
