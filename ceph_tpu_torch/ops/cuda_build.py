@@ -37,13 +37,16 @@ def nvcc() -> str:
 class KernelLibrary:
     """One csrc/ source, its shared library and its C entry point."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbol: str, argtypes: list,
+                 extra: dict | None = None):
         self.source = os.path.join(CSRC, source)
         self.path = os.path.join(
             BUILD_DIR, "lib" + os.path.splitext(source)[0] + ".so")
         self.symbol = symbol
-        self.argtypes = argtypes
-        self._fn = None
+        # every C function the library exports: name -> argtypes
+        self.entries = {symbol: argtypes, **(extra or {})}
+        self._cdll = None
+        self._fns = {}
         self._lock = threading.Lock()
 
     def _newest_input(self) -> float:
@@ -71,15 +74,19 @@ class KernelLibrary:
         os.replace(tmp, self.path)
         return self.path
 
-    def fn(self):
-        """The C entry point, building and loading the library once."""
+    def fn(self, name: str | None = None):
+        """A C function of the library (the entry point by default),
+        building and loading the library once."""
+        name = name or self.symbol
         with self._lock:
-            if self._fn is None:
-                fn = getattr(ctypes.CDLL(self.build()), self.symbol)
+            if name not in self._fns:
+                if self._cdll is None:
+                    self._cdll = ctypes.CDLL(self.build())
+                fn = getattr(self._cdll, name)
                 fn.restype = ctypes.c_int
-                fn.argtypes = self.argtypes
-                self._fn = fn
-            return self._fn
+                fn.argtypes = self.entries[name]
+                self._fns[name] = fn
+            return self._fns[name]
 
 
 def launch(lib: KernelLibrary, device, *args) -> None:

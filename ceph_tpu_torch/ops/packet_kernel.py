@@ -9,6 +9,15 @@ tensor it launches the hand-written kernel, which replaces the TPU kernel
 a CPU tensor it runs the plain PyTorch version, ``packet_apply_plain``:
 bit-plane unpack, a mod-2 product, repack.  ``launches`` counts the
 kernel launches.
+
+Both packet kernels (B2 here, B3 in ops/packet_xor_kernel.py) stage each
+item's tile, bytes [t*tile, t*tile + n) of every input packet of one
+super-word, in a ring of STAGES tiles in shared memory
+(csrc/packet_io.cuh).  ``tile_plan`` picks the tile for a launch and the
+block's shared-memory figure; the wrapper refuses a figure above the
+device's opt-in limit with a ValueError before anything launches, and the
+C entry point recomputes the figure from the same layout and refuses a
+launch that disagrees.
 """
 from __future__ import annotations
 
@@ -24,11 +33,21 @@ _LIB = KernelLibrary(
     "packet_bitplane.cu", "packet_bitplane_apply",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-     ctypes.c_longlong, ctypes.c_void_p])
+     ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_void_p],
+    extra={"packet_smem_limit": [ctypes.c_int],
+           "packet_bitplane_regs": [ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int)]})
 build = _LIB.build
-# packet offsets and masks share the 48 KiB a block gets without an
-# opt-in attribute
-MAX_SMEM = 48 * 1024
+
+# the staging ring of csrc/packet_io.cuh
+THREADS = 256          # threads per block (kThreads)
+WARPS = THREADS // 32  # warps share a tile's output rows (kWarps)
+STAGES = 2             # tiles in the ring (kStages)
+TILE_MIN, TILE_MAX = 16, 1024
+# two blocks per SM: an H100 SM has 228 KiB of shared memory, of which the
+# runtime reserves 1 KiB per block
+BLOCK_TARGET = (228 * 1024 - 2 * 1024) // 2
 
 launches = 0
 
@@ -62,9 +81,81 @@ class PacketOperand:
         return (self.bitmatrix.numel() * self.bitmatrix.element_size()
                 + self.masks.numel() * self.masks.element_size())
 
-    def smem_bytes(self) -> int:
-        kw = self.k * self.w
-        return (kw + self.rows) * 8 + self.masks.numel() * 4
+
+def align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def stage_bytes(kw: int, tile: int) -> int:
+    """One stage of the ring: the k*w input rows of an item and the zero
+    row that empty entries point at (csrc/packet_io.cuh)."""
+    return (kw + 1) * tile
+
+
+def tile_plan(packetsize: int, smem_of) -> tuple:
+    """(tile, shared-memory bytes) of a launch: the largest power-of-two
+    tile from TILE_MAX down to TILE_MIN, and no larger than the packet
+    needs, at which a block's figure ``smem_of(tile)`` leaves room for
+    two blocks on an SM; TILE_MIN when none does (the wrapper then checks
+    the figure against the device's limit)."""
+    tile = min(TILE_MAX, max(TILE_MIN, 1 << (packetsize - 1).bit_length()))
+    while tile > TILE_MIN and smem_of(tile) > BLOCK_TARGET:
+        tile //= 2
+    return tile, smem_of(tile)
+
+
+def bitplane_smem(kw: int, rows: int, tile: int) -> int:
+    """B2's block figure (bitplane_layout in csrc/packet_bitplane.cu): the
+    ring, then per unit of 4 rows a list of k*w + 45 2-byte column
+    entries (rounded up to 8) and 16 class bounds."""
+    units = (rows + 3) // 4
+    lists = align16(STAGES * stage_bytes(kw, tile))
+    bounds = lists + 2 * units * ((kw + 45 + 7) & ~7)
+    return align16(bounds + 64 * units)
+
+
+def launch_plan(operand: "PacketOperand", packetsize: int) -> tuple:
+    """(tile, shared-memory bytes) of B2 for this operand and packet
+    size."""
+    kw = operand.k * operand.w
+    return tile_plan(packetsize,
+                     lambda t: bitplane_smem(kw, operand.rows, t))
+
+
+_SMEM_LIMITS: dict = {}
+
+
+def smem_limit(device, lib: Optional[KernelLibrary] = None) -> int:
+    """The device's opt-in shared memory per block, from the C side (of
+    ``lib``, B2's library by default), once per device."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _SMEM_LIMITS:
+        _SMEM_LIMITS[idx] = (lib or _LIB).fn("packet_smem_limit")(idx)
+    return _SMEM_LIMITS[idx]
+
+
+def check_smem(kernel: str, lib: KernelLibrary, device, smem: int,
+               kw: int) -> None:
+    limit = smem_limit(device, lib)
+    if smem > limit:
+        raise ValueError(f"{kernel} needs {smem} bytes of shared memory at "
+                         f"k*w = {kw}, more than the device's {limit}")
+
+
+def kernel_regs(lib: KernelLibrary, symbol: str) -> tuple:
+    """(registers, local bytes) per thread of a compiled packet kernel."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.fn(symbol)(ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
+    return regs.value, local.value
+
+
+def regs() -> tuple:
+    """(registers, local bytes) per thread of B2's kernel."""
+    return kernel_regs(_LIB, "packet_bitplane_regs")
 
 
 def packet_apply_plain(bitmatrix, data: torch.Tensor, w: int,
@@ -133,9 +224,8 @@ def packet_apply(operand: PacketOperand, data: torch.Tensor,
         return res
     if data.device.type != "cuda":
         raise ValueError(f"B2 runs on cuda or cpu, not {data.device}")
-    if operand.smem_bytes() > MAX_SMEM:
-        raise ValueError(f"B2 operand needs {operand.smem_bytes()} bytes "
-                         f"of shared memory, more than {MAX_SMEM}")
+    tile, smem = launch_plan(operand, packetsize)
+    check_smem("B2", _LIB, data.device, smem, operand.k * operand.w)
     batch, k, L = data.shape
     if out is None:
         out = torch.empty((batch, operand.m_out, L), dtype=torch.uint8,
@@ -144,6 +234,6 @@ def packet_apply(operand: PacketOperand, data: torch.Tensor,
         return out
     launch(_LIB, data.device, operand.masks.data_ptr(), data.data_ptr(),
            out.data_ptr(), batch, k, operand.w, operand.rows, packetsize,
-           L // (operand.w * packetsize))
+           L // (operand.w * packetsize), tile, smem, data.device.index)
     launches += 1
     return out

@@ -21,18 +21,19 @@ from typing import Optional
 import torch
 
 from .cuda_build import KernelLibrary, launch
-from .packet_kernel import check_io
+from .packet_kernel import (STAGES, WARPS, align16, check_io, check_smem,
+                            kernel_regs, stage_bytes, tile_plan)
 
 _LIB = KernelLibrary(
     "packet_xor.cu", "packet_xor_apply",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-     ctypes.c_void_p])
+     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    extra={"packet_smem_limit": [ctypes.c_int],
+           "packet_xor_regs": [ctypes.POINTER(ctypes.c_int),
+                               ctypes.POINTER(ctypes.c_int)]})
 build = _LIB.build
-# packet offsets and the schedule share the 48 KiB a block gets without
-# an opt-in attribute
-MAX_SMEM = 48 * 1024
 
 launches = 0
 
@@ -70,9 +71,32 @@ class ScheduleOperand:
         return sum(t.numel() * t.element_size()
                    for t in (self.prev, self.start, self.cols))
 
-    def smem_bytes(self) -> int:
-        return ((self.k * self.w + self.rows) * 8
-                + (2 * self.rows + 1 + self.cols.numel()) * 4)
+
+def xor_smem(kw: int, rows: int, nnz: int, tile: int) -> int:
+    """B3's block figure (xor_layout in csrc/packet_xor.cu): the ring, the
+    output tile (rows x tile bytes, for rows that start from an earlier
+    row), the program (groups of eight 2-byte entries, at most
+    ceil(nnz/8) + rows), prev, the rows in program order, and the segment
+    table (two ints per (wave, warp), at most WARPS * rows + 1 each, and
+    the wave count)."""
+    otile = align16(STAGES * stage_bytes(kw, tile))
+    prog = align16(otile + rows * tile)
+    prev = prog + 16 * ((nnz + 7) // 8 + rows)
+    segs = prev + 8 * rows
+    return align16(segs + 8 * (WARPS * rows + 1) + 4)
+
+
+def launch_plan(operand: ScheduleOperand, packetsize: int) -> tuple:
+    """(tile, shared-memory bytes) of B3 for this operand and packet
+    size."""
+    kw, nnz = operand.k * operand.w, operand.cols.numel()
+    return tile_plan(packetsize,
+                     lambda t: xor_smem(kw, operand.rows, nnz, t))
+
+
+def regs() -> tuple:
+    """(registers, local bytes) per thread of B3's kernel."""
+    return kernel_regs(_LIB, "packet_xor_regs")
 
 
 def packet_xor_plain(schedule, data: torch.Tensor, w: int,
@@ -114,9 +138,8 @@ def packet_xor(operand: ScheduleOperand, data: torch.Tensor,
         return res
     if data.device.type != "cuda":
         raise ValueError(f"B3 runs on cuda or cpu, not {data.device}")
-    if operand.smem_bytes() > MAX_SMEM:
-        raise ValueError(f"B3 operand needs {operand.smem_bytes()} bytes "
-                         f"of shared memory, more than {MAX_SMEM}")
+    tile, smem = launch_plan(operand, packetsize)
+    check_smem("B3", _LIB, data.device, smem, operand.k * operand.w)
     batch, k, L = data.shape
     if out is None:
         out = torch.empty((batch, operand.m_out, L), dtype=torch.uint8,
@@ -127,6 +150,6 @@ def packet_xor(operand: ScheduleOperand, data: torch.Tensor,
            operand.start.data_ptr(), operand.cols.data_ptr(),
            data.data_ptr(), out.data_ptr(), batch, k, operand.w,
            operand.rows, operand.cols.numel(), packetsize,
-           L // (operand.w * packetsize))
+           L // (operand.w * packetsize), tile, smem, data.device.index)
     launches += 1
     return out

@@ -26,7 +26,9 @@ Phases, each of which must pass or the script exits non-zero:
      byte-code phases, B2 on the packetsize-2048 phases and the corpus,
      B3 on the packetsize-1000 phases;
   6. time each kernel (median of CUDA-event-timed launches) beside its
-     bound and its plain version at the shapes of its path.
+     bound and its plain version at the shapes of its path, and B2 and B3
+     each at the other's shape too; print each one's share of its bound
+     and the registers and shared memory a B2 or B3 block uses.
 Before the last line it prints the card's name and power limit and a
 `kernels` JSON line; the last line is the JSON result.  With no CUDA
 device, or outside the repo, it exits non-zero and prints no result.
@@ -489,44 +491,48 @@ def measure_b1(torch, gf8_kernel, carry, matrix, d_host) -> dict:
         INT8_OPS)
 
 
-def measure_b2(torch, b2, carry, B, d_host) -> dict:
-    """B2 and its plain version at [128, 10, 409600] -> [128, 4,
-    409600].  The plain version runs in slices of PLAIN_SLICE stripes
-    (its float32 bit tensor is about 17 GB for the whole batch); its
-    time is that of all the slices."""
-    w, ps = 8, 2048
+def measure_b2(torch, b2, carry, B, d_host, ps: int) -> dict:
+    """B2 and its plain version on d_host [128, 10, L] at packet size ps.
+    The plain version runs in slices of PLAIN_SLICE stripes (its float32
+    bit tensor is about 17 GB for the whole batch); its time is that of
+    all the slices."""
+    w = 8
     op = carry.packet_operand(B, w, DEV)
     data = torch.from_numpy(d_host).to(DEV)
-    out = torch.empty((PSTRIPES, PM, PCHUNK), dtype=torch.uint8,
-                      device=DEV)
+    L = data.shape[2]
+    out = torch.empty((PSTRIPES, PM, L), dtype=torch.uint8, device=DEV)
 
     def plain():
         return torch.cat([b2.packet_apply_plain(
             op.bitmatrix, data[i:i + PLAIN_SLICE], w, ps)
             for i in range(0, PSTRIPES, PLAIN_SLICE)])
     # as a mod-2 int8 product ([R, k*w] @ [k*w, 8*ps] per super-word)
-    return measure(
+    me = measure(
         torch, lambda: b2.packet_apply(op, data, ps, out), plain, out,
-        data.numel() + out.numel(),
-        2 * op.rows * PK * w * PSTRIPES * PCHUNK, INT8_OPS)
+        data.numel() + out.numel(), 2 * op.rows * PK * w * PSTRIPES * L,
+        INT8_OPS)
+    me["tile"], me["smem"] = b2.launch_plan(op, ps)
+    return me
 
 
-def measure_b3(torch, b3, carry, engine, B, d_host) -> dict:
-    """B3 and its plain version at [128, 10, 416000] -> [128, 4,
-    416000], packetsize 1000."""
-    w, ps = 8, 1000
+def measure_b3(torch, b3, carry, engine, B, d_host, ps: int) -> dict:
+    """B3 and its plain version on d_host [128, 10, L] at packet size
+    ps."""
+    w = 8
     sched = engine.build_xor_schedule(B)
     op = carry.schedule_operand(sched, PK, w, DEV)
     data = torch.from_numpy(d_host).to(DEV)
-    out = torch.empty((PSTRIPES, PM, PCHUNK_RAGGED), dtype=torch.uint8,
-                      device=DEV)
+    L = data.shape[2]
+    out = torch.empty((PSTRIPES, PM, L), dtype=torch.uint8, device=DEV)
     # the schedule's packet XORs, one operation per byte, at the int8 rate
     xors = sum(len(cols) for _, cols in sched)
-    return measure(
+    me = measure(
         torch, lambda: b3.packet_xor(op, data, ps, out),
         lambda: b3.packet_xor_plain(sched, data, w, ps), out,
-        data.numel() + out.numel(), xors * ps * PSTRIPES * (
-            PCHUNK_RAGGED // (w * ps)), INT8_OPS)
+        data.numel() + out.numel(), xors * ps * PSTRIPES * (L // (w * ps)),
+        INT8_OPS)
+    me["tile"], me["smem"] = b3.launch_plan(op, ps)
+    return me
 
 
 # phase -> the kernel its path must launch
@@ -586,12 +592,20 @@ def main() -> int:
             "B1": measure_b1(torch, gf8_kernel, carry, matrix,
                              run["info"]["d1"]),
             "B2": measure_b2(torch, packet_kernel, carry, info["bitmatrix"],
-                             info["d1"]),
+                             info["d1"], 2048),
             "B3": measure_b3(torch, packet_xor_kernel, carry, torch_engine,
-                             info["ragged_bitmatrix"], info["d3"])}
-        for name, me in meas.items():
+                             info["ragged_bitmatrix"], info["d3"], 1000)}
+        # each packet kernel at the other's shape too (both take any
+        # packet size): evidence for the packetsize % 128 routing rule
+        cross = {
+            "B2": measure_b2(torch, packet_kernel, carry,
+                             info["ragged_bitmatrix"], info["d3"], 1000),
+            "B3": measure_b3(torch, packet_xor_kernel, carry, torch_engine,
+                             info["bitmatrix"], info["d1"], 2048)}
+        for name, me in [*meas.items(), *cross.items()]:
             if me["max_abs_err"] != 0:
                 raise AssertionError(f"{name} != plain at its timed shape")
+        regs = {"B2": packet_kernel.regs(), "B3": packet_xor_kernel.regs()}
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback
         traceback.print_exc()
@@ -607,8 +621,8 @@ def main() -> int:
         print(f"{key} at {shape}: median {me['ms']:.4f} ms of "
               f"{len(me['runs_ms'])} runs ({me['bytes'] / me['ms'] / 1e6:.1f}"
               f" GB/s moved), bound {me['bound_ms']:.4f} ms "
-              f"({me['bound_by']}), plain {me['plain_ms']:.4f} ms, library "
-              f"call: none")
+              f"({me['bound_by']}, {me['bound_ms'] / me['ms']:.1%} of it "
+              f"reached), plain {me['plain_ms']:.4f} ms, library call: none")
         line.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -616,6 +630,17 @@ def main() -> int:
             "max_abs_err": me["max_abs_err"], "ms": me["ms"],
             "plain_ms": me["plain_ms"], "bound_ms": me["bound_ms"],
             "bound_by": me["bound_by"], "library_ms": None})
+    for key, me in cross.items():
+        ps = 1000 if key == "B2" else 2048
+        print(f"{key} at packetsize {ps} (the other kernel's shape): median "
+              f"{me['ms']:.4f} ms, bound {me['bound_ms']:.4f} ms "
+              f"({me['bound_ms'] / me['ms']:.1%} of it reached), plain "
+              f"{me['plain_ms']:.4f} ms")
+    for key in ("B2", "B3"):
+        (nregs, local), me = regs[key], meas[key]
+        print(f"{key} block: {nregs} registers and {local} bytes of local "
+              f"memory a thread, {me['smem']} bytes of shared memory "
+              f"(tile {me['tile']} bytes) at its timed shape")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

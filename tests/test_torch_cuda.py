@@ -112,7 +112,8 @@ def packet_row_sets(k, m, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ps", [4, 12, 36, 100, 128, 1000, 2048])
+@pytest.mark.parametrize("ps", [4, 12, 36, 100, 128, 520, 1000, 1040,
+                                2048, 4096])
 @pytest.mark.parametrize("k,m,w", [(10, 4, 8), (4, 2, 8), (5, 3, 7)])
 def test_packet_kernels_match_plain_and_oracle(card, k, m, w, ps):
     rng = np.random.default_rng(k * ps + w)
@@ -188,6 +189,48 @@ def test_packet_kernels_refuse_what_they_cannot_take(card):
         packet_xor_kernel.packet_xor(
             carry.schedule_operand(build_xor_schedule(wide), 256, 8, card),
             data, ps)
+
+
+def parity_rows(k, w):
+    """The XOR-parity bitmatrix [w, k*w]: output packet i is the XOR of
+    packet i of every chunk, so its schedule has k*w entries."""
+    return np.tile(np.eye(w, dtype=np.uint8), (1, k))
+
+
+@pytest.mark.cuda
+def test_packet_kernels_at_their_largest_k(card):
+    """The widest k*w each wrapper takes on this card runs byte-equal to
+    the plain version; one chunk more is refused before any launch."""
+    w, ps = 8, 16
+    limit = packet_kernel.smem_limit(card)
+    cases = (
+        (packet_kernel.packet_apply,
+         lambda k: carry.packet_operand(parity_rows(k, w), w, card),
+         lambda k: packet_kernel.tile_plan(
+             ps, lambda t: packet_kernel.bitplane_smem(k * w, w, t))[1]),
+        (packet_xor_kernel.packet_xor,
+         lambda k: carry.schedule_operand(
+             build_xor_schedule(parity_rows(k, w)), k, w, card),
+         lambda k: packet_kernel.tile_plan(
+             ps, lambda t: packet_xor_kernel.xor_smem(k * w, w, k * w,
+                                                      t))[1]))
+    for apply, operand, smem in cases:
+        k = 1
+        while smem(k + 1) <= limit:
+            k += 1
+        assert k * w > 4000, (apply.__name__, k)
+        rng = np.random.default_rng(k)
+        data = torch.from_numpy(rng.integers(0, 256, (2, k, 3 * w * ps),
+                                             dtype=np.uint8)).to(card)
+        op = operand(k)
+        out = apply(op, data, ps)
+        torch.cuda.synchronize()
+        assert torch.equal(out, packet_kernel.packet_apply_plain(
+            parity_rows(k, w), data, w, ps)), apply.__name__
+        wider = torch.zeros((1, k + 1, w * ps), dtype=torch.uint8,
+                            device=card)
+        with pytest.raises(ValueError, match="shared memory"):
+            apply(operand(k + 1), wider, ps)
 
 
 @pytest.mark.cuda

@@ -101,52 +101,171 @@ def test_carried_operands_round_trip(k, m, w):
         carry.schedule_operand(((-1, (k * w,)),) * w, k, w, "cpu")
 
 
-def packets(data, w, ps):
-    """uint8 [batch, k, L] -> uint32 words [batch, nw, k*w, ps/4]."""
+def access_unit(ps):
+    """The copy unit of csrc/packet_io.cuh for aligned buffers (numpy's
+    are): the widest of 16, 8, 4 or 1 bytes that divides ps."""
+    return next(u for u in (16, 8, 4, 1) if ps % u == 0)
+
+
+def stage_walk(tid, tile, unit, w):
+    """StageWalk::init of csrc/packet_io.cuh for thread tid."""
+    lanes = min(tile // unit, packet_kernel.THREADS)
+    c0, rstep = tid // lanes, packet_kernel.THREADS // lanes
+    return (tid & (lanes - 1), lanes, c0, rstep, c0 // w, c0 % w,
+            rstep // w, rstep % w)
+
+
+def items(data, w, ps, tile):
+    """The kernels' work items, in the C order: (stripe, super-word, byte
+    tile) -> (input row c -> its n bytes, output packet (e, i) -> the
+    slice of out it writes, n)."""
     batch, k, L = data.shape
-    x = data.reshape(batch, k, L // (w * ps), w, ps).transpose(0, 2, 1, 3, 4)
-    return np.ascontiguousarray(x).reshape(batch, -1, k * w, ps).view(
-        np.uint32)
+    for b, s, t in itertools.product(range(batch), range(L // (w * ps)),
+                                     range(-(-ps // tile))):
+        off = s * w * ps + t * tile
+        n = min(tile, ps - t * tile)
+        yield (b, lambda ci, cj, b=b, off=off, n=n:
+               data[b, ci, off + cj * ps:off + cj * ps + n],
+               lambda e, i, b=b, off=off, n=n:
+               (b, e, slice(off + i * ps, off + i * ps + n)), n)
 
 
-def unpackets(words, w):
-    batch, nw, R, _ = words.shape
-    x = words.view(np.uint8).reshape(batch, nw, R // w, w, -1)
-    return x.transpose(0, 2, 1, 3, 4).reshape(batch, R // w, -1)
+def stage_item(src, kw, w, tile, unit, n, rng):
+    """stage_item of csrc/packet_io.cuh: every thread's copies of one
+    item into a stage that holds stale bytes; each (row, chunk) must be
+    copied exactly once, and the walk's (ci, cj) must name row c.  Row
+    k*w is the stage's zero row."""
+    stage = rng.integers(0, 256, (kw + 1, tile), dtype=np.uint8)
+    stage[kw] = 0
+    chunks = n // unit
+    seen = np.zeros((kw, chunks), dtype=np.int64)
+    for tid in range(packet_kernel.THREADS):
+        lane, lanes, c, rstep, ci, cj, dci, dcj = stage_walk(tid, tile, unit,
+                                                            w)
+        while c < kw:
+            assert ci * w + cj == c
+            row = src(ci, cj)
+            for j in range(lane, chunks, lanes):
+                stage[c, j * unit:(j + 1) * unit] = row[j * unit:
+                                                        (j + 1) * unit]
+                seen[c, j] += 1
+            c, ci, cj = c + rstep, ci + dci, cj + dcj
+            if cj >= w:
+                cj, ci = cj - w, ci + 1
+    assert (seen == 1).all()
+    return stage
 
 
 def emulate_b2(op, data, ps):
-    """B2's arithmetic in numpy, word for word: for every column whose
-    group mask is not zero, XOR its packet into the rows whose bit is
-    set."""
-    x = packets(data, op.w, ps)
+    """B2's arithmetic in numpy, as csrc/packet_bitplane.cu does it: the
+    tile of launch_plan, each item staged once (ragged last tile, stale
+    bytes past it); per unit of 4 rows, the columns with a nonzero 4-bit
+    mask sorted by mask into 15 classes, each padded with the zero row to
+    a multiple of four; the XOR of a class's slices goes to the rows of
+    its mask's bits."""
+    w, kw, rows = op.w, op.k * op.w, op.rows
+    tile, smem = packet_kernel.launch_plan(op, ps)
+    assert smem == packet_kernel.bitplane_smem(kw, rows, tile)
     masks = op.masks.numpy().view(np.uint32)
-    acc = np.zeros(x.shape[:2] + (op.rows, x.shape[3]), dtype=np.uint32)
-    for g, c in itertools.product(range(masks.shape[0]), range(x.shape[2])):
-        for u in range(32):
-            if masks[g, c] >> u & 1:
-                acc[:, :, 32 * g + u] ^= x[:, :, c]
-    return unpackets(acc, op.w)
+    units = []
+    for u in range(-(-rows // 4)):
+        nib = (masks[u >> 3] >> np.uint32(4 * (u & 7))) & np.uint32(15)
+        classes = []
+        for n in range(1, 16):
+            lst = [c * tile for c in range(kw) if nib[c] == n]
+            classes.append(lst + [kw * tile] * (-len(lst) % 4))
+        assert sum(map(len, classes)) <= (kw + 45 + 7) & ~7
+        units.append(classes)
+    rng = np.random.default_rng(ps)
+    out = np.zeros((data.shape[0], rows // w, data.shape[2]), np.uint8)
+    for _, src, dst, n in items(data, w, ps, tile):
+        words = stage_item(src, kw, w, tile, access_unit(ps), n,
+                           rng).reshape(-1).view(np.uint32)
+        for u, classes in enumerate(units):
+            acc = np.zeros((4, tile // 4), dtype=np.uint32)
+            for cls, lst in enumerate(classes, start=1):
+                t = np.zeros(tile // 4, dtype=np.uint32)
+                for off in lst:
+                    t ^= words[off // 4:off // 4 + tile // 4]
+                for v in range(4):
+                    if cls >> v & 1:
+                        acc[v] ^= t
+            for v in range(4):
+                r = 4 * u + v
+                if r < rows:
+                    out[dst(r // w, r % w)] = acc[v].view(np.uint8)[:n]
+    return out
+
+
+FIRST, LAST, OFFSET = 1 << 14, 1 << 15, (1 << 14) - 1
+
+
+def xor_program(op, tile):
+    """build_program of csrc/packet_xor.cu: the rows in waves by their
+    depth in the prev forest, each to the least loaded of the WARPS
+    warps of its wave; a row as max(1, ceil(len/8)) groups of eight
+    16-bit stage offsets (16-byte units) padded with the zero row, FIRST
+    on the first entry of its first group and LAST on its last group's.
+    Returns {(wave, warp): [(row, groups)]}."""
+    kw, W = op.k * op.w, packet_kernel.WARPS
+    prev, start, cols = (t.numpy() for t in (op.prev, op.start, op.cols))
+    wave, segs = [], {}
+    for r in range(op.rows):
+        wave.append(0 if prev[r] < 0 else wave[prev[r]] + 1)
+        load = [sum(len(g) for _, g in segs.get((wave[r], v), ()))
+                for v in range(W)]
+        v = load.index(min(load))
+        lo, hi = start[r], start[r + 1]
+        ng = max(1, -(-(hi - lo) // 8))
+        row = [int(c) * tile >> 4 for c in cols[lo:hi]]
+        row += [kw * tile >> 4] * (8 * ng - len(row))
+        row[0] |= FIRST
+        row[8 * (ng - 1)] |= LAST
+        segs.setdefault((wave[r], v), []).append(
+            (r, np.array(row).reshape(ng, 8)))
+    ngroups = sum(len(g) for seg in segs.values() for _, g in seg)
+    assert ngroups <= (len(cols) + 7) // 8 + op.rows
+    return segs, max(wave) + 1
 
 
 def emulate_b3(op, data, ps):
-    """B3's arithmetic in numpy from the CSR arrays: row r starts from
-    row prev[r] (or zero) and XORs cols[start[r]:start[r+1]]."""
-    x = packets(data, op.w, ps)
-    prev, start, cols = (t.numpy() for t in (op.prev, op.start, op.cols))
-    out = np.zeros(x.shape[:2] + (op.rows, x.shape[3]), dtype=np.uint32)
-    for r in range(op.rows):
-        acc = out[:, :, prev[r]].copy() if prev[r] >= 0 else 0
-        for c in cols[start[r]:start[r + 1]]:
-            acc = acc ^ x[:, :, c]
-        out[:, :, r] = acc
-    return unpackets(out, op.w)
+    """B3's arithmetic in numpy, as csrc/packet_xor.cu does it: the tile of
+    launch_plan, each item staged once, the program run wave by wave and
+    warp by warp, and a row with prev >= 0 starting from that row of the
+    output tile, which an earlier wave wrote (stale bytes before)."""
+    w, kw, rows = op.w, op.k * op.w, op.rows
+    tile, smem = packet_xor_kernel.launch_plan(op, ps)
+    assert smem == packet_xor_kernel.xor_smem(kw, rows, op.cols.numel(),
+                                              tile)
+    segs, waves = xor_program(op, tile)
+    prev = op.prev.numpy()
+    rng = np.random.default_rng(ps + 1)
+    out = np.zeros((data.shape[0], rows // w, data.shape[2]), np.uint8)
+    for _, src, dst, n in items(data, w, ps, tile):
+        words = stage_item(src, kw, w, tile, access_unit(ps), n,
+                           rng).reshape(-1).view(np.uint32)
+        otile = rng.integers(0, 2**32, (rows, tile // 4), dtype=np.uint32)
+        done = set()
+        for d in range(waves):
+            for v in range(packet_kernel.WARPS):
+                for r, groups in segs.get((d, v), ()):
+                    assert prev[r] < 0 or prev[r] in done
+                    acc = (otile[prev[r]].copy() if prev[r] >= 0 else
+                           np.zeros(tile // 4, dtype=np.uint32))
+                    for gi, grp in enumerate(groups):
+                        assert bool(grp[0] & FIRST) == (gi == 0)
+                        assert bool(grp[0] & LAST) == (gi == len(groups) - 1)
+                        for e in (grp[0] & OFFSET, *grp[1:]):
+                            acc ^= words[e * 4:e * 4 + tile // 4]
+                    otile[r] = acc
+                    out[dst(r // w, r % w)] = acc.view(np.uint8)[:n]
+            done |= {r for v in range(packet_kernel.WARPS)
+                     for r, _ in segs.get((d, v), ())}
+        assert len(done) == rows
+    return out
 
 
-@pytest.mark.parametrize("k,m,w", CODES)
-def test_kernel_word_arithmetic_matches_plain(k, m, w):
-    ps = 16
-    data = rand(7 * k, 2, k, 3 * w * ps)
+def check_emulations(k, m, w, ps, data):
     for name, B in row_sets(k, m, w):
         want = packet_kernel.packet_apply_plain(
             B, torch.from_numpy(data), w, ps).numpy()
@@ -154,6 +273,66 @@ def test_kernel_word_arithmetic_matches_plain(k, m, w):
         assert np.array_equal(emulate_b2(op, data, ps), want), name
         sop = carry.schedule_operand(build_xor_schedule(B), k, w, "cpu")
         assert np.array_equal(emulate_b3(sop, data, ps), want), name
+
+
+@pytest.mark.parametrize("k,m,w", CODES)
+def test_kernel_word_arithmetic_matches_plain(k, m, w):
+    ps = 16
+    check_emulations(k, m, w, ps, rand(7 * k, 2, k, 3 * w * ps))
+
+
+@pytest.mark.parametrize("k,m,w", CODES)
+@pytest.mark.parametrize("ps", [8, 36, 520, 1000, 1040])
+def test_kernel_tile_arithmetic_at_tile_edges(ps, k, m, w):
+    """Packet sizes below, inside and across a tile: 1000 and 1040 at
+    k*w = 80 are a full tile and a ragged one (512 + 488, 512 + 512 +
+    16), 1040 at k*w = 24 or 32 a 1024-byte tile and 16 bytes."""
+    check_emulations(k, m, w, ps, rand(ps + k, 2, k, w * ps))
+
+
+# an H100's shared memory per block with the opt-in attribute
+H100_SMEM_OPTIN = 232448
+
+
+def test_tile_plan():
+    B = row_sets(10, 4, 8)[0][1]
+    op = carry.packet_operand(B, 8, "cpu")
+    sop = carry.schedule_operand(build_xor_schedule(B), 10, 8, "cpu")
+    for plan in (packet_kernel.launch_plan, packet_xor_kernel.launch_plan):
+        operand = op if plan is packet_kernel.launch_plan else sop
+        for ps in (1000, 2048):
+            tile, smem = plan(operand, ps)
+            assert tile == 512 and smem <= packet_kernel.BLOCK_TARGET
+        assert plan(operand, 8)[0] == 16 and plan(operand, 36)[0] == 64
+    for kw, rows in ((24, 8), (80, 32), (640, 64), (2040, 16)):
+        for ps in (8, 100, 1000, 4096):
+            tile, smem = packet_kernel.tile_plan(
+                ps, lambda t: packet_kernel.bitplane_smem(kw, rows, t))
+            assert tile & (tile - 1) == 0
+            assert packet_kernel.TILE_MIN <= tile <= packet_kernel.TILE_MAX
+            assert tile < 2 * max(ps, 16)
+            assert (smem <= packet_kernel.BLOCK_TARGET
+                    or tile == packet_kernel.TILE_MIN)
+            if 2 * tile <= min(packet_kernel.TILE_MAX, 2 * max(ps, 16) - 1):
+                assert packet_kernel.bitplane_smem(
+                    kw, rows, 2 * tile) > packet_kernel.BLOCK_TARGET
+    # the largest figures of geometries the first design took (offsets and
+    # operand within 48 KiB) still fit an H100 block
+    for rows in (8, 16, 32, 64, 96, 256):
+        for kw in range(8, 6000, 8):
+            first = (kw + rows) * 8 + -(-rows // 32) * kw * 4
+            if first <= 48 * 1024:
+                assert packet_kernel.tile_plan(
+                    16, lambda t: packet_kernel.bitplane_smem(kw, rows, t)
+                )[1] <= H100_SMEM_OPTIN
+            for nnz in (kw, 4 * kw):
+                first = (kw + rows) * 8 + (2 * rows + 1 + nnz) * 4
+                if first <= 48 * 1024:
+                    assert packet_kernel.tile_plan(
+                        16, lambda t: packet_xor_kernel.xor_smem(
+                            kw, rows, nnz, t))[1] <= H100_SMEM_OPTIN
+    # k=256 m=32 w=8 does not: its row lists alone outgrow a block
+    assert packet_kernel.bitplane_smem(2048, 256, 16) > H100_SMEM_OPTIN
 
 
 @pytest.mark.parametrize("ps,kernel", [
