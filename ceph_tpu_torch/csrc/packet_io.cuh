@@ -1,5 +1,7 @@
 // Shared by the packet-layout kernels B2 (packet_bitplane.cu) and B3
-// (packet_xor.cu): the staging ring both are built on.
+// (packet_xor.cu): the staging ring both are built on.  Kernel B1
+// (gf8_bitplane.cu) takes its device information, access unit and store16
+// from here too.
 //
 // Both map uint8 data [batch, k, L] to uint8 out [batch, rows/w, L], where
 // each chunk is nw super-words of w packets of ps bytes (L = nw * w * ps):
@@ -47,11 +49,13 @@ constexpr int kMaxBlocksPerSm = 8;
 constexpr int kBadPlan = -1;  // tile or shared-memory figure disagrees
 constexpr int kNoRoom = -2;   // figure above the device's opt-in limit
 
+// The widest of 16, 8, 4 or 1 bytes that divides ps and both pointers
+// (never 2: the copies and loads know no 2-byte unit).
 inline int access_unit(const void* a, const void* b, long long ps) {
   const uintptr_t mix = reinterpret_cast<uintptr_t>(a) |
                         reinterpret_cast<uintptr_t>(b) |
                         static_cast<uintptr_t>(ps);
-  for (int u = 16; u > 1; u >>= 1)
+  for (int u = 16; u > 2; u >>= 1)
     if (mix % u == 0) return u;
   return 1;
 }

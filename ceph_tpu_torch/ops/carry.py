@@ -27,8 +27,12 @@ from .packet_xor_kernel import ScheduleOperand
 
 def bitmatrix_operand(bitmatrix, k: int, device) -> Gf8Operand:
     """B1 operand for a 0/1 bitmatrix [8*m_out, 8*k]: the bitmatrix itself
-    and its column bytes cols[e, c, j] = sum_i B[8e+i, 8c+j] << i, copied
-    into all four byte lanes of an int32 word."""
+    and its byte tables.  With the column bytes col[e, c, j] = sum_i
+    B[8e+i, 8c+j] << i, the 8 input bits of chunk c are taken in three
+    fields (bits 0-2, 3-5, 6-7), and table (e, c, g) maps a field value v
+    to the XOR of col[e, c, 3g+b] over the set bits b of v.  The tables
+    are int32 [m_out, k, 3, 2]: the low and high word of 8 bytes, entry v
+    in byte v; entries 4-7 of the 2-bit field stay zero."""
     B = np.asarray(bitmatrix, dtype=np.uint8)
     R, KW = B.shape
     if R % 8 or KW != 8 * k:
@@ -38,19 +42,29 @@ def bitmatrix_operand(bitmatrix, k: int, device) -> Gf8Operand:
     m_out = R // 8
     blocks = B.reshape(m_out, 8, k, 8).astype(np.uint32)   # [e, i, c, j]
     col = (blocks << np.arange(8, dtype=np.uint32)[None, :, None, None]
-           ).sum(axis=1, dtype=np.uint32)                   # [e, c, j]
-    cols = (col * np.uint32(0x01010101)).view(np.int32)
+           ).sum(axis=1, dtype=np.uint32).astype(np.uint8)  # [e, c, j]
+    v = np.arange(8)
+    tab = np.zeros((m_out, k, 3, 8), dtype=np.uint8)
+    for g in range(3):
+        width = min(3, 8 - 3 * g)
+        for b in range(width):
+            hit = ((v >> b) & 1).astype(bool) & (v < (1 << width))
+            tab[:, :, g] ^= np.where(hit, col[:, :, 3 * g + b, None], 0
+                                     ).astype(np.uint8)
     return Gf8Operand(
         bitmatrix=torch.from_numpy(B.copy()).to(device),
-        cols=torch.from_numpy(np.ascontiguousarray(cols)).to(device),
+        tables=torch.from_numpy(tab.view(np.int32).copy()).to(device),
         k=int(k), m_out=int(m_out))
 
 
 def operand_bitmatrix(operand: Gf8Operand) -> np.ndarray:
-    """The bitmatrix that ``operand.cols`` encodes (inverse of the column
-    packing), for round-trip checks."""
-    cols = operand.cols.cpu().numpy().view(np.uint32) & np.uint32(0xFF)
-    bits = (cols[:, None, :, :] >> np.arange(8, dtype=np.uint32)
+    """The bitmatrix that ``operand.tables`` encodes: entry 1 << b of
+    field g is the column byte of input bit 3g+b (for round-trip
+    checks)."""
+    tab = np.ascontiguousarray(operand.tables.cpu().numpy()).view(np.uint8)
+    j = np.arange(8)
+    col = tab[:, :, j // 3, 1 << (j % 3)].astype(np.uint32)  # [e, c, j]
+    bits = (col[:, None, :, :] >> np.arange(8, dtype=np.uint32)
             [None, :, None, None]) & 1                      # [e, i, c, j]
     return bits.reshape(8 * operand.m_out, 8 * operand.k).astype(np.uint8)
 

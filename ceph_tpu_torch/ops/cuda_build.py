@@ -4,13 +4,16 @@ Each kernel module (gf8_kernel, packet_kernel, packet_xor_kernel) holds
 one ``KernelLibrary``: its ``.cu`` source is compiled for sm_90a at first
 use into build/kernels/ at the repo root, as a shared library with a
 plain C entry point, and loaded with ctypes.  A missing nvcc or a failed
-build raises; nothing falls back.
+build raises; nothing falls back.  ``sass_opcodes`` counts a compiled
+kernel's instructions (with the toolkit's cuobjdump), for reports.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -87,6 +90,46 @@ class KernelLibrary:
                 fn.argtypes = self.entries[name]
                 self._fns[name] = fn
             return self._fns[name]
+
+
+_SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9]*)\S*\s*([^;]*)")
+
+
+def count_sass(text: str, function: str) -> dict:
+    """Static opcode counts (without modifiers) in a cuobjdump -sass
+    listing, over the functions whose mangled name contains ``function``:
+    {"all": counts, "loop": counts of the innermost loop body (the span of
+    a backward branch holding no other) with the most PRMTs}."""
+    code, inside = [], False      # (address, opcode, operands)
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside and (m := _SASS_LINE.match(line)):
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    spans = []                    # (first, last) address of each loop
+    for addr, op, args in code:
+        target = re.match(r"\s*(0x[0-9a-f]+)", args) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            spans.append((int(target.group(1), 16), addr))
+    inner = [(a, b) for a, b in spans if not any(
+        a <= c and d < b for c, d in spans if (c, d) != (a, b))]
+    loops = [[o for x, o, _ in code if a <= x <= b] for a, b in inner]
+    hot = max(loops, key=lambda ops: ops.count("PRMT"), default=[])
+    return {"all": dict(collections.Counter(op for _, op, _ in code)),
+            "loop": dict(collections.Counter(hot))}
+
+
+def sass_opcodes(lib: KernelLibrary, function: str) -> dict | None:
+    """``count_sass`` of ``lib``'s compiled code, read with the toolkit's
+    cuobjdump; None when there is no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    res = subprocess.run([tool, "-sass", lib.build()], capture_output=True,
+                         text=True, check=True)
+    return count_sass(res.stdout, function)
 
 
 def launch(lib: KernelLibrary, device, *args) -> None:

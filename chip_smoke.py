@@ -8,7 +8,9 @@ Phases, each of which must pass or the script exits non-zero:
      nvcc (one process per source, started together): B1
      (gf8_bitplane.cu), B2 (packet_bitplane.cu) and B3 (packet_xor.cu);
   2. hold each kernel against its plain PyTorch version on the card,
-     byte for byte, at encode and decode shapes;
+     byte for byte, at encode and decode shapes (B1 also at chunk
+     lengths that take 8- and 4-byte loads, on a misaligned view and at
+     the widest operand it admits, one chunk more being refused);
   3. drive the byte-code path through the `gpu` plugin of the registry,
      at the headline k=8 m=4 reed_sol_van geometry (512 stripes x 128 KiB
      chunks = 512 MiB a dispatch): two encode dispatches in flight, a
@@ -27,8 +29,9 @@ Phases, each of which must pass or the script exits non-zero:
      B3 on the packetsize-1000 phases;
   6. time each kernel (median of CUDA-event-timed launches) beside its
      bound and its plain version at the shapes of its path, and B2 and B3
-     each at the other's shape too; print each one's share of its bound
-     and the registers and shared memory a B2 or B3 block uses.
+     each at the other's shape too; print each one's share of its bound,
+     the registers, local and shared memory each kernel's block uses,
+     and the static SASS opcode counts of B1's main-path kernel.
 Before the last line it prints the card's name and power limit and a
 `kernels` JSON line; the last line is the JSON result.  With no CUDA
 device, or outside the repo, it exits non-zero and prints no result.
@@ -52,6 +55,8 @@ DIRTY = (2, 6)
 OBJECT_BYTES = 64 << 20
 SEED = 20261016
 DEV = "cuda"               # every tensor and codec of the run lives here
+# B1 check lengths: ragged, 16-byte loads, 8- and 4-byte loads
+B1_LENGTHS = (192, 320, 4096, 4100, 4104, 131072)
 
 # packet-code geometry: BASELINE config 3 (cauchy_good k=10 m=4, 4 MiB
 # stripes), as the JAX package's bench.py decode_setup shapes it
@@ -124,8 +129,19 @@ def build_all(kernels) -> float:
 
 
 def check_b1(torch, gf8_kernel, carry, matrix, engine) -> None:
-    """B1 against gf8_apply_plain on the card, encode and decode rows."""
+    """B1 against gf8_apply_plain on the card: encode and decode rows at
+    chunk lengths that take 16-, 8- and 4-byte loads (4096, 4104, 4100)
+    and a ragged tail, a misaligned view, and the widest operand the
+    wrapper admits, with one chunk more refused before any launch."""
     rng = torch.Generator(device=DEV).manual_seed(SEED)
+
+    def same(name, op, data, out=None):
+        got = gf8_kernel.gf8_apply(op, data, out)
+        want = gf8_kernel.gf8_apply_plain(op.bitmatrix, data)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B1 {name}: kernel != plain")
+
     for k, m in ((8, 4), (4, 2), (2, 1)):
         M_ = matrix.reed_sol_vandermonde_coding_matrix(k, m, 8)
         core = engine.CodecCore(k, m, 8, coding_matrix=M_)
@@ -135,17 +151,48 @@ def check_b1(torch, gf8_kernel, carry, matrix, engine) -> None:
         ops = {"encode": carry.carry_codec(M_, core.bitmatrix, k, m, 8,
                                            DEV),
                "decode": carry.carry_rows(rows_gf, rows_bits, DEV)}
-        for L in (192, 320, 4096, 131072):
+        for L in B1_LENGTHS:
             data = torch.randint(0, 256, (3, k, L), dtype=torch.uint8,
                                  device=DEV, generator=rng)
             for name, op in ops.items():
-                got = gf8_kernel.gf8_apply(op, data)
-                want = gf8_kernel.gf8_apply_plain(op.bitmatrix, data)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"B1 {name} k={k} m={m} L={L}: kernel != plain")
-        print(f"B1 == plain at k={k} m={m}, L in 192/320/4096/131072")
+                same(f"{name} k={k} m={m} L={L}", op, data)
+        print(f"B1 == plain at k={k} m={m}, L in "
+              f"{'/'.join(map(str, B1_LENGTHS))}")
+    # a view 1 byte into its buffer: byte loads and stores
+    flat = torch.randint(0, 256, (1 + 3 * K * 4096,), dtype=torch.uint8,
+                         device=DEV, generator=rng)
+    out = torch.empty(1 + 3 * M * 4096, dtype=torch.uint8, device=DEV)
+    same("misaligned", ops_of(carry, matrix, K, M),
+         flat[1:].view(3, K, 4096), out[1:].view(3, M, 4096))
+    # the widest operand: m_out * k * 24 bytes of tables in 48 KiB
+    k = gf8_kernel.MAX_TABLE_BYTES // (gf8_kernel.TABLE_BYTES * M)
+    gen = torch.Generator().manual_seed(SEED)
+    B = torch.randint(0, 2, (8 * M, 8 * k), dtype=torch.uint8, generator=gen)
+    same(f"m_out={M} k={k}", carry.bitmatrix_operand(B.numpy(), k, DEV),
+         torch.randint(0, 256, (2, k, 100), dtype=torch.uint8, device=DEV,
+                       generator=rng))
+    before = gf8_kernel.launches
+    try:
+        gf8_kernel.gf8_apply(
+            carry.bitmatrix_operand(torch.zeros(8 * M, 8 * (k + 1),
+                                                dtype=torch.uint8).numpy(),
+                                    k + 1, DEV),
+            torch.zeros((1, k + 1, 16), dtype=torch.uint8, device=DEV))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"B1 took m_out={M} k={k + 1}")
+    if gf8_kernel.launches != before:
+        raise AssertionError("B1 launched an operand it refuses")
+    print(f"B1 == plain on a misaligned view and at m_out={M} k={k}; "
+          f"k={k + 1} refused before launching")
+
+
+def ops_of(carry, matrix, k, m):
+    """The reed_sol_van encode operand of (k, m) on the card."""
+    M_ = matrix.reed_sol_vandermonde_coding_matrix(k, m, 8)
+    return carry.carry_codec(M_, matrix.matrix_to_bitmatrix(M_, 8), k, m, 8,
+                             DEV)
 
 
 class Launches:
@@ -478,17 +525,17 @@ def measure(torch, run, plain, out, nbytes: int, ops: int,
 
 def measure_b1(torch, gf8_kernel, carry, matrix, d_host) -> dict:
     """B1 and its plain version at the headline shape, same inputs."""
-    M_ = matrix.reed_sol_vandermonde_coding_matrix(K, M, 8)
-    op = carry.carry_codec(M_, matrix.matrix_to_bitmatrix(M_, 8), K, M, 8,
-                           DEV)
+    op = ops_of(carry, matrix, K, M)
     data = torch.from_numpy(d_host).to(DEV)
     out = torch.empty((STRIPES, M, CHUNK), dtype=torch.uint8, device=DEV)
     # as a mod-2 int8 product: 2 ops per bitmatrix entry per byte column
-    return measure(
+    me = measure(
         torch, lambda: gf8_kernel.gf8_apply(op, data, out),
         lambda: gf8_kernel.gf8_apply_plain(op.bitmatrix, data), out,
         data.numel() + out.numel(), 2 * (8 * M) * (8 * K) * STRIPES * CHUNK,
         INT8_OPS)
+    me["smem"] = op.tables.numel() * op.tables.element_size()
+    return me
 
 
 def measure_b2(torch, b2, carry, B, d_host, ps: int) -> dict:
@@ -605,7 +652,9 @@ def main() -> int:
         for name, me in [*meas.items(), *cross.items()]:
             if me["max_abs_err"] != 0:
                 raise AssertionError(f"{name} != plain at its timed shape")
-        regs = {"B2": packet_kernel.regs(), "B3": packet_xor_kernel.regs()}
+        regs = {"B1": gf8_kernel.regs(), "B2": packet_kernel.regs(),
+                "B3": packet_xor_kernel.regs()}
+        sass = gf8_kernel.sass_opcodes()
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback
         traceback.print_exc()
@@ -636,11 +685,22 @@ def main() -> int:
               f"{me['ms']:.4f} ms, bound {me['bound_ms']:.4f} ms "
               f"({me['bound_ms'] / me['ms']:.1%} of it reached), plain "
               f"{me['plain_ms']:.4f} ms")
-    for key in ("B2", "B3"):
+    for key in ("B1", "B2", "B3"):
         (nregs, local), me = regs[key], meas[key]
+        tile = f" (tile {me['tile']} bytes)" if "tile" in me else ""
         print(f"{key} block: {nregs} registers and {local} bytes of local "
-              f"memory a thread, {me['smem']} bytes of shared memory "
-              f"(tile {me['tile']} bytes) at its timed shape")
+              f"memory a thread, {me['smem']} bytes of shared memory"
+              f"{tile} at its timed shape")
+    if sass is None:
+        print("B1 SASS opcodes: not counted (no cuobjdump)")
+    else:
+        ops = ("PRMT", "LOP3", "SHF", "IADD3", "IMAD", "LDS", "LDG", "STG")
+        for part, what in (("loop", "hottest loop, a pair of chunks"),
+                           ("all", "whole kernel")):
+            n = sass[part]
+            print(f"B1 SASS opcodes, 16-byte kernel, {what}: " + ", ".join(
+                f"{op} {n.get(op, 0)}" for op in ops)
+                + f", all {sum(n.values())}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

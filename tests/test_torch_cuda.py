@@ -42,7 +42,7 @@ def row_sets(k, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [100, 192, 320, 4096])
+@pytest.mark.parametrize("L", [100, 192, 320, 4096, 4100, 4104])
 @pytest.mark.parametrize("k,m", GEOMETRIES)
 def test_kernel_matches_plain_and_oracle(card, k, m, L):
     rng = np.random.default_rng(k * L)
@@ -68,6 +68,57 @@ def test_kernel_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError):
         gf8_kernel.gf8_apply(op, torch.zeros((1, 64, 4), dtype=torch.uint8,
                                              device=card).mT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+def test_kernel_at_misaligned_pointers(card, offset):
+    """Views that start 1, 2, 4 or 8 bytes into a buffer take the byte,
+    4-byte and 8-byte loads and stores."""
+    k, m, L = 8, 4, 4096
+    rows, bits = row_sets(k, m)[1]
+    rng = np.random.default_rng(offset)
+    flat = torch.from_numpy(rng.integers(0, 256, offset + 3 * k * L,
+                                         dtype=np.uint8)).to(card)
+    data = flat[offset:].view(3, k, L)
+    outbuf = torch.zeros(offset + 3 * m * L + 16, dtype=torch.uint8,
+                         device=card)
+    out = outbuf[offset:offset + 3 * m * L].view(3, m, L)
+    gf8_kernel.gf8_apply(carry.carry_rows(rows, bits, card), data, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gf8_kernel.gf8_apply_plain(bits, data))
+    # nothing written outside the view
+    assert not outbuf[:offset].any() and not outbuf[offset + 3 * m * L:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_out", [4, 6, 16])
+def test_kernel_at_its_widest_operand(card, m_out):
+    """The widest m_out*k whose tables fit the wrapper's shared memory runs
+    byte-equal to the plain version (outputs past 4 as further groups);
+    one chunk more is refused before any launch."""
+    k = gf8_kernel.MAX_TABLE_BYTES // (gf8_kernel.TABLE_BYTES * m_out)
+    rng = np.random.default_rng(m_out)
+    B = rng.integers(0, 2, (8 * m_out, 8 * k), dtype=np.uint8)
+    data = torch.from_numpy(rng.integers(0, 256, (2, k, 100),
+                                         dtype=np.uint8)).to(card)
+    out = gf8_kernel.gf8_apply(carry.bitmatrix_operand(B, k, card), data)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gf8_kernel.gf8_apply_plain(B, data))
+    wider = np.zeros((8 * m_out, 8 * (k + 1)), dtype=np.uint8)
+    before = gf8_kernel.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        gf8_kernel.gf8_apply(
+            carry.bitmatrix_operand(wider, k + 1, card),
+            torch.zeros((1, k + 1, 16), dtype=torch.uint8, device=card))
+    assert gf8_kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_kernel_uses_no_local_memory(card):
+    for unit in gf8_kernel.UNITS:
+        nregs, local = gf8_kernel.regs(unit)
+        assert 0 < nregs <= 255 and local == 0, (unit, nregs, local)
 
 
 @pytest.mark.cuda
@@ -140,7 +191,7 @@ def test_packet_kernels_match_plain_and_oracle(card, k, m, w, ps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("offset", [1, 4, 8])
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
 def test_packet_kernels_at_misaligned_pointers(card, offset):
     k, m, w, ps = 4, 2, 8, 64
     B = packet_row_sets(k, m, w)[0]
