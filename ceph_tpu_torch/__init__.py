@@ -8,8 +8,12 @@ against.  Ported so far, from the codec up:
   ceph_tpu_torch.ec     - erasure-code interface, plugin registry, the CPU
                           `jerasure` plugin and the flagship `gpu` plugin
   ceph_tpu_torch.osd    - ecutil: stripe algebra, batched object encode and
-                          decode, HashInfo CRCs
-  ceph_tpu_torch.utils  - crc32c
+                          decode, HashInfo CRCs; batcher: one OSD's
+                          EncodeBatcher, coalescing writes, degraded reads
+                          and overwrites into one device call per geometry
+  ceph_tpu_torch.utils  - crc32c, and what the batcher stands on: config,
+                          perf counters, flight recorder, device ledger,
+                          faults, tuner, locks, lockdep, op tracker
 
 Entry points run on CUDA unless the caller asks for the CPU.
 """

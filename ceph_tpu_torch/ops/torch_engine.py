@@ -25,6 +25,7 @@ raises where there is none; the CPU is used only when asked for.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 import time
@@ -437,6 +438,15 @@ class TorchBackend:
         """Accept the ``ec_tpu_mesh_devices`` / ``ec_tpu_mesh_sp`` knobs.
         One card means no mesh: the single-device path always serves."""
 
+    # no mesh was ever built, so there are no mesh_build events
+    mesh_events: tuple = ()
+
+    def mesh_info(self) -> Optional[dict]:
+        """The active device mesh as {dp, sp, n_devices, device_ids}, or
+        None: one card, no mesh.  The OSD batcher keys its learned
+        crossover and link estimate by this shape."""
+        return None
+
     def memory_stats(self) -> dict:
         """Footprint snapshot for the memory-accounting gauges: host
         staging rings, device-resident kernel operands and matrices, and
@@ -563,16 +573,21 @@ class TorchBackend:
             data = data[None]
         lead = data.shape[:-2] if not squeeze else ()
         data = data.reshape((-1,) + data.shape[-2:])
-        dev, batch, L, done, sample, ledger = self._staged_put(data,
-                                                               quantum)
-        try:
-            out = fn(dev)
-            ledger["compute_start"] = time.time()
-        finally:
-            # on success the fence follows the kernel; on failure it
-            # follows the h2d copy — either way the slot comes back
-            done()
-        ab = AsyncBatch(out, batch, L, lead, ledger)
+        # callers dispatch from several threads (the OSD batcher's
+        # collector and prewarm): each enqueues its h2d copy, kernel and
+        # d2h copy on the current stream of this backend's device
+        with (torch.cuda.device(self.device) if self.is_cuda
+              else contextlib.nullcontext()):
+            dev, batch, L, done, sample, ledger = self._staged_put(
+                data, quantum)
+            try:
+                out = fn(dev)
+                ledger["compute_start"] = time.time()
+            finally:
+                # on success the fence follows the kernel; on failure it
+                # follows the h2d copy — either way the slot comes back
+                done()
+            ab = AsyncBatch(out, batch, L, lead, ledger)
         if sample is not None:
             ab.h2d_bytes, ab.h2d_seconds = sample
         return ab

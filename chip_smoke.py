@@ -24,10 +24,24 @@ Phases, each of which must pass or the script exits non-zero:
      trip of a 64 MiB object; then packetsize 1000 (chunks of 416,000
      bytes): encode and decode; then the committed jerasure cauchy_good
      and liberation corpus vectors;
-  5. fail unless every phase launched the kernel of its path: B1 on the
-     byte-code phases, B2 on the packetsize-2048 phases and the corpus,
-     B3 on the packetsize-1000 phases;
-  6. time each kernel (median of CUDA-event-timed launches) beside its
+  5. drive one OSD's EncodeBatcher (ceph_tpu_torch/osd/batcher.py),
+     built from default_config() with ec_tpu_batch_stripes=512,
+     ec_tpu_queue_window_us=2000, ec_tpu_fallback_cpu=False and
+     osd_ec_prewarm=True, from 8 submitting threads: prewarm, then two
+     passes of 128 writes of 4 MiB (k=8 m=4, 128 KiB chunks) and a
+     burst of 256 (two groups in flight), 128 degraded reads of those
+     objects with shards (1, 5, 9, 11) lost, 128 overwrites of data
+     columns (2, 6) over 4 stripes, and 64 one-stripe cauchy_good
+     k=10 m=4 writes; every result byte-equal to
+     the batcher's CPU twin (jerasure on the native GF kernels), fewer
+     calls than requests in each lane, no group served by the twin, no
+     device error and the breaker never open; one line per lane with
+     its calls, host-to-host rate, launches and overlap share;
+  6. fail unless every phase launched the kernel of its path: B1 on the
+     byte-code phases and the batcher's encode, decode and delta lanes,
+     B2 on the packetsize-2048 phases, the corpus and the batcher's
+     packet lane, B3 on the packetsize-1000 phases;
+  7. time each kernel (median of CUDA-event-timed launches) beside its
      bound and its plain version at the shapes of its path, and B2 and B3
      each at the other's shape too; print each one's share of its bound,
      the registers, local and shared memory each kernel's block uses,
@@ -76,6 +90,15 @@ PACKET_CASES = [("cauchy_good", 10, 4, 8, 2048),
 CORPUS = ["jerasure_k=4_m=2_technique=cauchy_good",
           "jerasure_k=5_m=3_technique=liberation"]
 
+# batcher phase: one OSD's EncodeBatcher from default_config(), PG
+# workers as submitting threads; 4 MiB objects (the RBD/RGW default)
+BATCH_STRIPES = 512        # ec_tpu_batch_stripes: stripes a dispatch
+BATCH_WINDOW_US = 2000     # ec_tpu_queue_window_us
+OBJ_STRIPES = 4            # 4 MiB objects of 1 MiB k=8 stripes
+BATCH_OPS = 128            # requests a lane pass: 512 MiB of objects
+BATCH_THREADS = 8
+PKT_OPS = 64               # one-stripe cauchy_good writes of 4 MiB
+
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8 ops/s
 HBM_BPS = 3.35e12
 INT8_OPS = 1.979e15
@@ -104,6 +127,17 @@ def cuda_time_ms(fn, reps: int):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return median(times), times
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True)
+    except OSError as e:
+        return f"not read: {e}"
+    return smi.stdout.strip() or smi.stderr.strip()
 
 
 def corpus_payload(size: int) -> bytes:
@@ -582,12 +616,260 @@ def measure_b3(torch, b3, carry, engine, B, d_host, ps: int) -> dict:
     return me
 
 
+def fan_out(fn, n: int, threads: int) -> None:
+    """Call fn(i) for i in range(n) from ``threads`` threads at once, as
+    PG workers submit to one OSD's batcher."""
+    import threading
+    ts = [threading.Thread(target=lambda j=j: [fn(i) for i in
+                                               range(j, n, threads)])
+          for j in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+
+
+def run_lane(b, submit, n: int, counts, lane: str) -> dict:
+    """Submit n requests from BATCH_THREADS threads, wait for every
+    callback; returns the results, wall seconds, launches, the lane's
+    batched calls and the ledgers of its groups."""
+    import threading
+    out = [None] * n
+    ends = [0.0] * n
+    left = threading.Semaphore(0)
+
+    def cb(i):
+        def done(res):
+            out[i], ends[i] = res, time.time()
+            left.release()
+        return done
+    attr = {"encode": "calls", "decode": "dec_calls",
+            "delta": "delta_calls", "packet": "calls"}[lane]
+    calls0 = getattr(b, attr)
+    seen = len(b.ledger_accum.recent())
+    counts.reset()
+    t0, t0_wall = time.monotonic(), time.time()
+    fan_out(lambda i: submit(i, cb(i)), n, BATCH_THREADS)
+    submitted = time.time() - t0_wall
+    for _ in range(n):
+        if not left.acquire(timeout=300):
+            raise AssertionError(f"batcher {lane} lane: a request never "
+                                 f"completed")
+    wall = time.monotonic() - t0
+    launches = counts.read()
+    if any(r is None for r in out):
+        raise AssertionError(f"batcher {lane} lane: a request failed")
+    return {"out": out, "wall": wall, "launches": launches,
+            "calls": getattr(b, attr) - calls0,
+            "ledgers": b.ledger_accum.recent()[seen:],
+            "t0_wall": t0_wall, "submitted": submitted,
+            "last_cb": max(ends) - t0_wall}
+
+
+def report_lane(lane: str, r: dict, n: int, nbytes: int, kernel: str,
+                b, ledger) -> None:
+    """One line per lane pass: requests, calls, host-to-host rate,
+    launches, the overlap figures and where group wall time went."""
+    leds = r["ledgers"]
+    ov = ledger.overlap_stats(leds)
+    phases = {}
+    for led in leds:
+        for name, dt in ledger.charge_phases(led):
+            phases[name] = phases.get(name, 0.0) + dt
+    # one host clock: submits, then the window and batch forming until
+    # the first group stages, the staged groups (ledger), then the
+    # per-shard gathers and callbacks after the last group delivers
+    first = min(led["stage_acquire"] for led in leds) - r["t0_wall"]
+    last = max(led["deliver"] for led in leds) - r["t0_wall"]
+    print(f"batcher {lane}: {n} requests in {r['calls']} calls "
+          f"(group_stripes_hwm {b.group_stripes_hwm}), {nbytes / 2**30:.3f}"
+          f" GiB in {r['wall']:.4f} s host to host = "
+          f"{nbytes / 2**30 / r['wall']:.3f} GiB/s, {kernel} launches "
+          f"{r['launches'][kernel]}; ms from the first submit: submits "
+          f"done {r['submitted'] * 1e3:.1f}, first group staging "
+          f"{first * 1e3:.1f}, last group delivered {last * 1e3:.1f}, "
+          f"last callback {r['last_cb'] * 1e3:.1f}; overlap: "
+          f"{ov['groups']} groups, {ov['pairs']} pairs, "
+          f"pipeline_overlap_frac {ov['pipeline_overlap_frac']}; group "
+          f"phase ms: "
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in phases.items()))
+
+
+def batcher_path(torch, np, registry, ecutil, counts) -> dict:
+    """Drive one OSD's EncodeBatcher, built from default_config() as an
+    OSD builds it, with its encode, decode, delta and packet lanes at
+    full width from BATCH_THREADS submitting threads; every result is
+    held to the batcher's own CPU twin (jerasure, native GF kernels)
+    byte for byte."""
+    from ceph_tpu_torch.osd.batcher import EncodeBatcher
+    from ceph_tpu_torch.utils import device_ledger as ledger
+    from ceph_tpu_torch.utils.config import default_config
+    from ceph_tpu_torch.utils.flight_recorder import FlightRecorder
+    from ceph_tpu_torch.utils.perf import PerfCountersCollection
+
+    print(f"batcher phase on {card()} (nvidia-smi name, power limit)")
+    conf = default_config()
+    for name, value in (("ec_tpu_batch_stripes", BATCH_STRIPES),
+                        ("ec_tpu_queue_window_us", BATCH_WINDOW_US),
+                        ("ec_tpu_fallback_cpu", False),
+                        ("osd_ec_prewarm", True)):
+        conf.set(name, value)
+    EncodeBatcher.reset_learning()
+    coll = PerfCountersCollection()
+    b = EncodeBatcher(conf, perf_coll=coll,
+                      recorder=FlightRecorder(capacity=256, name="osd.0"))
+    launches = {}
+    try:
+        codec = registry.instance().factory(
+            "gpu", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
+                    "device": DEV})
+        sinfo = ecutil.StripeInfo(K, K * CHUNK)
+        t0 = time.monotonic()
+        warm = b.prewarm(codec, sinfo)
+        if warm is None:
+            raise AssertionError("prewarm started nothing")
+        warm.join()
+        nwarm = len({BATCH_STRIPES, BATCH_STRIPES // 2})
+        if b.prewarm_error is not None or b.compile_count != nwarm:
+            raise AssertionError(
+                f"prewarm: {b.compile_count} of {nwarm} warm dispatches, "
+                f"error {b.prewarm_error!r}")
+        if EncodeBatcher._h2d_bps <= 0:
+            raise AssertionError("prewarm did not seed the h2d EWMA")
+        twin = b.cpu_twin(codec, sinfo)
+        print(f"batcher prewarm: {b.compile_count} warm dispatches, "
+              f"{time.monotonic() - t0:.4f} s, h2d seed "
+              f"{EncodeBatcher._h2d_bps / 1e9:.3f} GB/s; CPU twin on "
+              f"{type(twin.base.core.backend).__name__}")
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+
+        def rand(*shape):
+            return torch.randint(0, 256, shape, dtype=torch.uint8,
+                                 device=DEV, generator=gen).cpu().numpy()
+
+        nst = BATCH_OPS * OBJ_STRIPES
+        objs = rand(BATCH_OPS, OBJ_STRIPES * K * CHUNK)
+        stripes = objs.reshape(nst, K, CHUNK)
+        parity = twin.encode_batch(stripes)
+
+        def rows(i):
+            return slice(i * OBJ_STRIPES, (i + 1) * OBJ_STRIPES)
+
+        def check(lane, i, got, want):
+            for s, arr in want.items():
+                if not np.array_equal(np.frombuffer(got[s], np.uint8),
+                                      arr.reshape(-1)):
+                    raise AssertionError(f"batcher {lane} lane: op {i} "
+                                         f"shard {s} != CPU twin")
+
+        def want_chunks(i):
+            p = parity[rows(i)]
+            return {s: (np.ascontiguousarray(stripes[rows(i), s])
+                        if s < K else p[:, s - K]) for s in range(K + M)}
+
+        # encode: two passes of 128 writes of 4 MiB
+        for npass in (1, 2):
+            r = run_lane(b, lambda i, cb: b.submit(codec, sinfo, objs[i],
+                                                   cb),
+                         BATCH_OPS, counts, "encode")
+            for i, got in enumerate(r["out"]):
+                check("encode", i, got, want_chunks(i))
+            launches[f"batcher_encode_{npass}"] = r["launches"]
+            report_lane(f"encode pass {npass}", r, BATCH_OPS, objs.nbytes,
+                        "B1", b, ledger)
+            if r["calls"] >= BATCH_OPS:
+                raise AssertionError("batcher encode lane did not coalesce")
+        encoded = r["out"]
+        # a burst of twice as many writes: groups of up to 512 stripes
+        # with two in flight (ec_tpu_inflight_groups), the case the
+        # overlap figures describe
+        r = run_lane(b, lambda i, cb: b.submit(
+            codec, sinfo, objs[i % BATCH_OPS], cb),
+            2 * BATCH_OPS, counts, "encode")
+        for i, got in enumerate(r["out"]):
+            check("encode", i, got, want_chunks(i % BATCH_OPS))
+        launches["batcher_encode_burst"] = r["launches"]
+        report_lane("encode burst", r, 2 * BATCH_OPS, 2 * objs.nbytes,
+                    "B1", b, ledger)
+
+        # decode: 128 degraded reads, shards ERASED lost
+        r = run_lane(b, lambda i, cb: b.submit_decode(
+            codec, sinfo, {s: c for s, c in encoded[i].items()
+                           if s not in ERASED}, set(ERASED), cb),
+            BATCH_OPS, counts, "decode")
+        for i, got in enumerate(r["out"]):
+            want = want_chunks(i)
+            check("decode", i, got, {e: want[e] for e in ERASED})
+        launches["batcher_decode"] = r["launches"]
+        report_lane("decode", r, BATCH_OPS,
+                    nst * CHUNK * (K + M - len(ERASED)), "B1", b, ledger)
+        if r["calls"] >= BATCH_OPS:
+            raise AssertionError("batcher decode lane did not coalesce")
+
+        # delta: 128 overwrites of columns DIRTY over 4 stripes each
+        deltas = rand(nst, len(DIRTY), CHUNK)
+        dpar = twin.core.delta_parity(deltas, DIRTY)
+        r = run_lane(b, lambda i, cb: b.submit_delta(
+            codec, sinfo, deltas[rows(i)], DIRTY, cb),
+            BATCH_OPS, counts, "delta")
+        for i, got in enumerate(r["out"]):
+            check("delta", i, got, {K + j: dpar[rows(i), j]
+                                    for j in range(M)})
+        launches["batcher_delta"] = r["launches"]
+        report_lane("delta", r, BATCH_OPS, deltas.nbytes, "B1", b, ledger)
+        if r["calls"] >= BATCH_OPS:
+            raise AssertionError("batcher delta lane did not coalesce")
+
+        # packet codes: cauchy_good k=10 m=4, 4 MiB one-stripe writes
+        pcodec = registry.instance().factory(
+            "gpu", {"k": str(PK), "m": str(PM), "technique": "cauchy_good",
+                    "device": DEV})
+        psinfo = ecutil.StripeInfo(PK, PK * PCHUNK)
+        pobjs = rand(PKT_OPS, PK * PCHUNK)
+        ppar = b.cpu_twin(pcodec, psinfo).encode_batch(
+            pobjs.reshape(PKT_OPS, PK, PCHUNK))
+        r = run_lane(b, lambda i, cb: b.submit(pcodec, psinfo, pobjs[i],
+                                               cb),
+                     PKT_OPS, counts, "packet")
+        for i, got in enumerate(r["out"]):
+            stripe = pobjs[i].reshape(PK, PCHUNK)
+            check("packet", i, got, {s: (stripe[s] if s < PK else
+                                         ppar[i, s - PK])
+                                     for s in range(PK + PM)})
+        launches["batcher_packet"] = r["launches"]
+        report_lane("packet (cauchy_good k=10 m=4, packetsize 2048)", r,
+                    PKT_OPS, pobjs.nbytes, "B2", b, ledger)
+        if r["calls"] >= PKT_OPS:
+            raise AssertionError("batcher packet lane did not coalesce")
+
+        if b.group_stripes_hwm <= OBJ_STRIPES:
+            raise AssertionError(f"group_stripes_hwm {b.group_stripes_hwm}")
+        faults = {"cpu_reqs": b.cpu_reqs, "dec_cpu_reqs": b.dec_cpu_reqs,
+                  "delta_cpu_reqs": b.delta_cpu_reqs,
+                  "device_errors": b.device_errors,
+                  "breaker_opens": EncodeBatcher._breaker_opens}
+        if any(faults.values()):
+            raise AssertionError(f"batcher twin routes or device faults: "
+                                 f"{faults}")
+        routes = {k: v for k, v in coll.perf_dump()["ec_device"].items()
+                  if "route_" in k and v}
+        print(f"batcher: {faults}, route verdicts {routes}, "
+              f"h2d EWMA {EncodeBatcher._h2d_bps / 1e9:.3f} GB/s")
+    finally:
+        b.stop()
+    return launches
+
+
 # phase -> the kernel its path must launch
 PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "ecutil": "B1", "pkt_encode": "B2",
                 "pkt_decode_device": "B2", "pkt_decode": "B2",
                 "pkt_ecutil": "B2", "ragged_encode": "B3",
-                "ragged_decode": "B3", "corpus": "B2"}
+                "ragged_decode": "B3", "corpus": "B2",
+                "batcher_encode_1": "B1", "batcher_encode_2": "B1",
+                "batcher_encode_burst": "B1",
+                "batcher_decode": "B1", "batcher_delta": "B1",
+                "batcher_packet": "B2"}
 KERNELS = {
     "B1": ("gf8_bitplane_apply (B1)", "ceph_tpu_torch/csrc/gf8_bitplane.cu",
            "ceph_tpu/ops/jax_engine.py:382",
@@ -628,7 +910,8 @@ def main() -> int:
         check_packet(torch, mods, carry, registry, torch_engine)
         run = main_path(torch, np, registry, ecutil, engine, counts)
         pkt = packet_path(torch, np, registry, ecutil, engine, counts)
-        launches = {**run["launches"], **pkt["launches"]}
+        bat = batcher_path(torch, np, registry, ecutil, counts)
+        launches = {**run["launches"], **pkt["launches"], **bat}
         for phase, n in launches.items():
             if n[PHASE_KERNEL[phase]] < 1:
                 raise AssertionError(
@@ -660,10 +943,7 @@ def main() -> int:
         traceback.print_exc()
         return fail(f"{type(e).__name__}: {e}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    print(f"nvidia-smi: {smi.stdout.strip() or smi.stderr.strip()}")
+    print(f"nvidia-smi: {card()}")
     line = []
     for key, me in meas.items():
         name, source, replaces, shape = KERNELS[key]

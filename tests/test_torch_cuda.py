@@ -320,3 +320,53 @@ def test_gpu_packet_codecs_on_cuda(card, technique, profile, kernel):
     out = codec.decode_batch_device(dev, chosen, (0, 1)).cpu().numpy()
     assert np.array_equal(out[:batch, :, :L], data[:, :2])
     assert kernel.launches >= before + 5
+
+
+@pytest.mark.cuda
+def test_batcher_encode_lane_on_cuda(card):
+    """The OSD batcher's encode lane on the card: writes from several
+    threads coalesce into fewer B1 launches than requests, every chunk
+    map equals the CPU twin's (jerasure), no group is served by the
+    twin, and a sampled staging transfer feeds the h2d EWMA."""
+    import threading
+
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.osd.batcher import EncodeBatcher
+
+    codec = registry.instance().factory("gpu", {"k": "8", "m": "4"})
+    sinfo = ecutil.StripeInfo(8, 8 * 4096)
+    rng = np.random.default_rng(8)
+    objs = [rng.integers(0, 256, 4 * sinfo.stripe_width,
+                         dtype=np.uint8).tobytes() for _ in range(16)]
+    EncodeBatcher.reset_learning()
+    b = EncodeBatcher({"ec_tpu_batch_stripes": 64,
+                       "ec_tpu_queue_window_us": 20_000,
+                       "ec_tpu_fallback_cpu": False})
+    try:
+        codec.core.backend.staging._puts = 0   # sample the first put
+        got = [None] * len(objs)
+        left = threading.Semaphore(0)
+
+        def write(i):
+            b.submit(codec, sinfo, objs[i],
+                     lambda c: (got.__setitem__(i, c), left.release()))
+        before = gf8_kernel.launches
+        threads = [threading.Thread(target=write, args=(i,))
+                   for i in range(len(objs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for _ in objs:
+            assert left.acquire(timeout=120)
+        launched = gf8_kernel.launches - before
+        assert 1 <= launched < len(objs)
+        assert b.calls == launched and b.reqs_total == len(objs)
+        assert b.cpu_reqs == 0 and b.device_errors == 0
+        twin = b.cpu_twin(codec, sinfo)
+        for obj, chunks in zip(objs, got):
+            assert chunks == ecutil.encode(sinfo, twin, obj)
+        assert EncodeBatcher._h2d_bps > 0
+    finally:
+        b.stop()
+        EncodeBatcher.reset_learning()
