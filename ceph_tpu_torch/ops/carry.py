@@ -5,7 +5,8 @@ Both packages build the same numpy state: a codec's ``coding_matrix``
 erasure signature the recovery rows ``(rows_gf, rows_bits)`` of
 ``CodecCore._recovery_rows``.  These functions take that state from
 either package, check that its two halves agree, and return the
-device-resident ``Gf8Operand`` that kernel B1 reads.
+device-resident ``Gf8Operand`` that kernel B1 reads (``bitmatrix_split``:
+one for each block of a bitmatrix too large for one launch).
 
 The packet-layout codes carry their bitmatrix ([R, k*w], 0/1) into the
 ``PacketOperand`` of kernel B2, and its XOR schedule (the tuple that
@@ -19,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .gf8_kernel import Gf8Operand
+from .gf8_kernel import Gf8Operand, Gf8Split, split_plan
 from .matrix import matrix_to_bitmatrix
 from .packet_kernel import PacketOperand
 from .packet_xor_kernel import ScheduleOperand
@@ -54,6 +55,20 @@ def bitmatrix_operand(bitmatrix, k: int, device) -> Gf8Operand:
     return Gf8Operand(
         bitmatrix=torch.from_numpy(B.copy()).to(device),
         tables=torch.from_numpy(tab.view(np.int32).copy()).to(device),
+        k=int(k), m_out=int(m_out))
+
+
+def bitmatrix_split(bitmatrix, k: int, device) -> Gf8Split:
+    """B1 operands for a 0/1 bitmatrix [8*m_out, 8*k] of any size: one
+    ``bitmatrix_operand`` per block of ``split_plan(m_out, k)``."""
+    B = np.asarray(bitmatrix, dtype=np.uint8)
+    if B.shape[0] % 8 or B.shape[1] != 8 * k:
+        raise ValueError(f"bitmatrix {B.shape} does not fit k={k}, w=8")
+    m_out = B.shape[0] // 8
+    return Gf8Split(
+        blocks=tuple(((r0, r1, c0, c1), bitmatrix_operand(
+            B[8 * r0:8 * r1, 8 * c0:8 * c1], c1 - c0, device))
+            for r0, r1, c0, c1 in split_plan(m_out, k)),
         k=int(k), m_out=int(m_out))
 
 

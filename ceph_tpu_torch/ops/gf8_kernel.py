@@ -10,6 +10,12 @@ field of 3, 3 or 2 input bits), done with the byte-permute instruction.
 On a CPU tensor it runs the plain PyTorch version, ``gf8_apply_plain``:
 bit-plane unpack, a mod-2 product, repack.
 
+One launch holds the tables of at most MAX_PAIRS (output, input chunk)
+pairs in shared memory.  A larger bitmatrix (crclinear's scrub windows:
+k = 512 chunks, up to 20 outputs) is applied in the blocks of
+``split_plan``, one launch each, on every device alike
+(``torch_engine.gf8_apply_split``).
+
 The CUDA source is compiled with nvcc at first use into build/kernels/
 at the repo root and loaded with ctypes (ops/cuda_build.py); a missing
 nvcc or a failed build raises.  ``launches`` counts the kernel launches.
@@ -37,6 +43,8 @@ build = _LIB.build
 # under the 48 KiB a block gets without an opt-in attribute
 TABLE_BYTES = 24
 MAX_TABLE_BYTES = 48 * 1024
+# the most (output, input chunk) pairs one launch takes
+MAX_PAIRS = MAX_TABLE_BYTES // TABLE_BYTES
 # the load and store widths the kernel is built for (csrc/gf8_bitplane.cu)
 UNITS = (16, 8, 4, 1)
 
@@ -65,6 +73,36 @@ class Gf8Operand:
     def nbytes(self) -> int:
         return (self.bitmatrix.numel() * self.bitmatrix.element_size()
                 + self.tables.numel() * self.tables.element_size())
+
+
+@dataclass(frozen=True)
+class Gf8Split:
+    """B1's operands for a bitmatrix of any size: one Gf8Operand per
+    block of ``split_plan(m_out, k)``, as ((row0, row1, col0, col1),
+    operand) with rows in outputs and columns in input chunks."""
+    blocks: tuple
+    k: int
+    m_out: int
+
+    @property
+    def nbytes(self) -> int:
+        return sum(op.nbytes for _, op in self.blocks)
+
+
+def split_plan(m_out: int, k: int, max_pairs: int = MAX_PAIRS) -> list:
+    """The blocks a [8*m_out, 8*k] bitmatrix is applied in, each small
+    enough for one launch's tables: [(row0, row1, col0, col1)], outputs
+    row0:row1 from input chunks col0:col1, row groups in order.  Chunks
+    go in groups of at most ``max_pairs`` (all k when they fit), outputs
+    in groups of ``max_pairs // chunks``: one output a block when k alone
+    is too large, and then the blocks of a row group sum (XOR) to it."""
+    if m_out < 1 or k < 1:
+        raise ValueError(f"no bitmatrix of {m_out} outputs and {k} chunks")
+    cstep = min(k, max_pairs)
+    rstep = max_pairs // cstep
+    return [(r0, min(r0 + rstep, m_out), c0, min(c0 + cstep, k))
+            for r0 in range(0, m_out, rstep)
+            for c0 in range(0, k, cstep)]
 
 
 def sass_opcodes(unit: int = 16) -> Optional[dict]:

@@ -18,7 +18,9 @@ routes them.  Codes with w = 16 or 32 apply in plain torch ops.
 
 Shapes are bucketed (batch to the next power of two, length to a
 multiple of 128) so staging rings and cached operands stay few while the
-OSD feeds variable-size stripe batches.
+OSD feeds variable-size stripe batches.  A synchronous w=8 bitmatrix
+apply (crclinear's checksum windows) is staged at its own batch and
+length: B1 has no per-shape build to share.
 
 Every backend names its device.  ``TorchBackend()`` means CUDA and
 raises where there is none; the CPU is used only when asked for.
@@ -35,9 +37,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .carry import (bitmatrix_operand, carry_rows, packet_operand,
+from .carry import (bitmatrix_split, carry_rows, packet_operand,
                     schedule_operand)
-from .gf8_kernel import gf8_apply
+from .gf8_kernel import Gf8Split, gf8_apply
 from .matrix import matrix_to_bitmatrix
 from .packet_kernel import packet_apply
 from .packet_xor_kernel import packet_xor
@@ -167,6 +169,34 @@ def _apply_byte_domain_plain(B: torch.Tensor, data: torch.Tensor,
     out_words = (out_bits << shifts.view(w, 1)).sum(dim=2)  # [b, m, Lw]
     parts = [(out_words >> (8 * i)) & 0xFF for i in range(wbytes)]
     return torch.stack(parts, dim=-1).reshape(batch, m, L).to(torch.uint8)
+
+
+def gf8_apply_split(split: Gf8Split, data: torch.Tensor,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B1 over every block of ``split``: uint8 [batch, k, L] -> [batch,
+    m_out, L], one gf8_apply a block.  A single block writes ``out``
+    directly; otherwise each block writes a contiguous output that is
+    copied into its rows, and a block of part of the chunks reads a
+    contiguous copy of them, its output XOR-ed into the rows (the map is
+    GF(2)-linear, so the sum is exact).  Every block re-reads its input:
+    a split into n row groups reads ``data`` n times."""
+    if data.dim() != 3 or data.shape[1] != split.k:
+        raise ValueError(f"data {tuple(data.shape)} does not fit k="
+                         f"{split.k}")
+    if len(split.blocks) == 1:
+        return gf8_apply(split.blocks[0][1], data, out)
+    batch, k, L = data.shape
+    if out is None:
+        out = torch.empty((batch, split.m_out, L), dtype=torch.uint8,
+                          device=data.device)
+    for (r0, r1, c0, c1), op in split.blocks:
+        part = data if (c0, c1) == (0, k) else data[:, c0:c1].contiguous()
+        res = gf8_apply(op, part)
+        if c0 == 0:
+            out[:, r0:r1].copy_(res)
+        else:
+            out[:, r0:r1] ^= res
+    return out
 
 
 def _round_up(x: int, q: int) -> int:
@@ -477,11 +507,12 @@ class TorchBackend:
         return hit
 
     # -- host <-> device -----------------------------------------------
-    def _padded(self, data: np.ndarray, quantum: int):
-        """Pad [batch, k, L] to bucketed [batch', k, L'] (zeros are
-        harmless: the code is GF-linear)."""
+    def _padded(self, data: np.ndarray, quantum: int, bucket: bool = True):
+        """Pad [batch, k, L] to [batch', k, L'], L' a multiple of
+        ``quantum`` and batch' the next power of two when ``bucket``
+        (zeros are harmless: the code is GF-linear)."""
         batch, k, L = data.shape
-        bb = _bucket_batch(batch)
+        bb = _bucket_batch(batch) if bucket else batch
         Lb = _round_up(L, quantum)
         if bb == batch and Lb == L:
             return data, batch, L
@@ -495,16 +526,21 @@ class TorchBackend:
             arr = arr.copy()
         return torch.from_numpy(arr).to(self.device)
 
-    def _run_sync(self, fn, data: np.ndarray, quantum: int) -> np.ndarray:
+    def _run_sync(self, fn, data: np.ndarray, quantum: int,
+                  bucket: bool = True) -> np.ndarray:
         """Pad, run ``fn`` on the device copy, and return the trimmed
-        host result, keeping any leading batch axes."""
+        host result, keeping any leading batch axes.  Any thread may
+        call it (BlueStore's applier does): the work goes on the current
+        stream of this backend's device."""
         squeeze = data.ndim == 2
         if squeeze:
             data = data[None]
         lead = data.shape[:-2]
         data = data.reshape((-1,) + data.shape[-2:])
-        padded, batch, L = self._padded(data, quantum)
-        out = fn(self._to_device(padded)).cpu().numpy()[:batch, :, :L]
+        padded, batch, L = self._padded(data, quantum, bucket)
+        with (torch.cuda.device(self.device) if self.is_cuda
+              else contextlib.nullcontext()):
+            out = fn(self._to_device(padded)).cpu().numpy()[:batch, :, :L]
         out = out.reshape(lead + out.shape[-2:])
         return out[0] if squeeze else out
 
@@ -637,13 +673,16 @@ class TorchBackend:
         return functools.partial(gf8_apply, operand)
 
     def _bitmatrix_fn(self, B: np.ndarray, w: int):
+        """The apply of a bitmatrix over [batch, C, L] byte chunks: at
+        w=8 B1 in the blocks of ``split_plan`` (one launch each; the
+        operands LRU-cached per bitmatrix), else plain torch ops."""
         if w == 8:
             B = np.asarray(B, dtype=np.uint8)
             key = ("bm8", B.shape, B.tobytes())
-            operand = self._chain_lru.get_or_build(
-                key, lambda: bitmatrix_operand(B, B.shape[1] // 8,
-                                               self.device))
-            return functools.partial(gf8_apply, operand)
+            split = self._chain_lru.get_or_build(
+                key, lambda: bitmatrix_split(B, B.shape[1] // 8,
+                                             self.device))
+            return functools.partial(gf8_apply_split, split)
         return functools.partial(_apply_byte_domain_plain,
                                  self._device_matrix(B), w=w)
 
@@ -685,7 +724,13 @@ class TorchBackend:
 
     def apply_bitmatrix_bytes(self, B: np.ndarray, data: np.ndarray,
                               w: int) -> np.ndarray:
+        """Byte-domain apply of a GF(2) bitmatrix [R, w*C] over [..., C,
+        L] chunks.  At w=8 (B1) the data is staged at its own batch and
+        length, unpadded."""
         wbytes = self._check_words(data, w)
+        if w == 8:
+            return self._run_sync(self._bitmatrix_fn(B, w), data, 1,
+                                  bucket=False)
         return self._run_sync(self._bitmatrix_fn(B, w), data,
                               LENGTH_QUANTUM * wbytes)
 

@@ -37,15 +37,32 @@ Phases, each of which must pass or the script exits non-zero:
      calls than requests in each lane, no group served by the twin, no
      device error and the breaker never open; one line per lane with
      its calls, host-to-host rate, launches and overlap share;
-  6. fail unless every phase launched the kernel of its path: B1 on the
-     byte-code phases and the batcher's encode, decode and delta lanes,
-     B2 on the packetsize-2048 phases, the corpus and the batcher's
-     packet lane, B3 on the packetsize-1000 phases;
-  7. time each kernel (median of CUDA-event-timed launches) beside its
+  6. drive the store (ceph_tpu_torch/store/bluestore.py): one RAM
+     BlueStore with its defaults, wired to the batcher of phase 5 as an
+     OSD wires it (attach_device_batcher), takes 128 writes of 4 MiB from
+     8 threads; each write's checksum batch (1024 blocks of 4 KiB) is one
+     crclinear window on B1; every object reads back byte-equal, every
+     block's CRC equals the host crc32c, every batch of more than one
+     block ran on the card, and no fallback is counted; the same writes
+     into a BlueStore with no backend (the host loop) for comparison;
+  7. a deep-scrub-shaped window (as the JAX package's
+     osd/ecbackend.py builds it): 128 k=8 m=4 stripes of 128 KiB chunks
+     encoded through the `gpu` plugin, each shard's 16 MiB window with
+     its syndrome bands through crclinear on B1 (bitmatrices of up to
+     [160, 4096], applied in row groups), equal to the CPU route; the
+     syndrome partials cancel across the 12 shards and do not after one
+     flipped byte;
+  8. fail unless every phase launched the kernel of its path: B1 on the
+     byte-code phases, the batcher's encode, decode and delta lanes, the
+     store and the scrub window, B2 on the packetsize-2048 phases, the
+     corpus and the batcher's packet lane, B3 on the packetsize-1000
+     phases;
+  9. time each kernel (median of CUDA-event-timed launches) beside its
      bound and its plain version at the shapes of its path, and B2 and B3
-     each at the other's shape too; print each one's share of its bound,
-     the registers, local and shared memory each kernel's block uses,
-     and the static SASS opcode counts of B1's main-path kernel.
+     each at the other's shape too, B1 also at the store's and the scrub
+     window's shapes; print each one's share of its bound, the
+     registers, local and shared memory each kernel's block uses, and
+     the static SASS opcode counts of B1's main-path kernel.
 Before the last line it prints the card's name and power limit and a
 `kernels` JSON line; the last line is the JSON result.  With no CUDA
 device, or outside the repo, it exits non-zero and prints no result.
@@ -98,6 +115,12 @@ OBJ_STRIPES = 4            # 4 MiB objects of 1 MiB k=8 stripes
 BATCH_OPS = 128            # requests a lane pass: 512 MiB of objects
 BATCH_THREADS = 8
 PKT_OPS = 64               # one-stripe cauchy_good writes of 4 MiB
+
+# store phase: a RAM BlueStore with its defaults; 4 MiB objects
+STORE_OBJS = 128           # 512 MiB of 4 KiB blocks
+STORE_COLL = "1.0s0"
+# scrub window: ec_tpu_scrub_window_bytes (16 MiB) of 128 KiB chunks
+SCRUB_STRIPES = 128
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8 ops/s
 HBM_BPS = 3.35e12
@@ -616,6 +639,74 @@ def measure_b3(torch, b3, carry, engine, B, d_host, ps: int) -> dict:
     return me
 
 
+def measure_crc(torch, np, gf8_kernel, carry, torch_engine, store_obj,
+                scrub) -> dict:
+    """B1 at crclinear's shapes, each against its plain version: the
+    store's checksum window (one 4 MiB write: [1024, 512, 8] -> [1024,
+    4, 8]) and one row group of the scrub window ([128, 512, 256] ->
+    [128, 4, 256]); the whole scrub window's split apply (one launch a
+    row group, each re-reading the input) against the bound of reading
+    it once; and one store window host to host through the backend,
+    staged at its own length against staged padded to LENGTH_QUANTUM
+    and a power-of-two batch, as before."""
+    from ceph_tpu_torch.ops import crclinear
+    lin = crclinear.shared()
+    out = {}
+    x_store = lin.stack_blocks(store_obj.reshape(-1, 4096))
+    x_scrub = lin.stack_blocks(scrub["shard"])
+    for name, x, band in (("store", x_store, 1),
+                          ("scrub_group", x_scrub, scrub["bands"][-1])):
+        op = carry.bitmatrix_operand(lin.block_bitmatrix((band,)),
+                                     lin.block, DEV)
+        data = torch.from_numpy(x).to(DEV)
+        res = torch.empty((data.shape[0], op.m_out, data.shape[2]),
+                          dtype=torch.uint8, device=DEV)
+        out[name] = measure(
+            torch, lambda: gf8_kernel.gf8_apply(op, data, res),
+            lambda: gf8_kernel.gf8_apply_plain(op.bitmatrix, data), res,
+            data.numel() + res.numel(),
+            2 * (8 * op.m_out) * (8 * op.k) * data.shape[0] * data.shape[2],
+            INT8_OPS)
+        out[name]["shape"] = (tuple(data.shape), tuple(res.shape))
+    M_ = lin.block_bitmatrix(scrub["bands"])
+    split = carry.bitmatrix_split(M_, lin.block, DEV)
+    data = torch.from_numpy(x_scrub).to(DEV)
+    res = torch.empty((data.shape[0], split.m_out, data.shape[2]),
+                      dtype=torch.uint8, device=DEV)
+    out["scrub_window"] = measure(
+        torch, lambda: torch_engine.gf8_apply_split(split, data, res),
+        lambda: gf8_kernel.gf8_apply_plain(M_, data), res,
+        data.numel() + res.numel(),
+        2 * M_.shape[0] * M_.shape[1] * data.shape[0] * data.shape[2],
+        INT8_OPS)
+    out["scrub_window"].update(shape=(tuple(data.shape), tuple(res.shape)),
+                               groups=len(split.blocks))
+    # one store window host to host: staged unpadded, and padded
+    be = scrub["backend"]
+    M1 = lin.block_bitmatrix((1,))
+    fn = be._bitmatrix_fn(M1, 8)
+    batch, k, L = x_store.shape
+    want = be.apply_bitmatrix_bytes(M1, x_store, 8)
+    staged = {}
+    for name, run, nbytes in (
+            ("own", lambda: be.apply_bitmatrix_bytes(M1, x_store, 8),
+             x_store.nbytes),
+            ("padded", lambda: be._run_sync(fn, x_store,
+                                            torch_engine.LENGTH_QUANTUM),
+             torch_engine._bucket_batch(batch) * k * torch_engine._round_up(
+                 L, torch_engine.LENGTH_QUANTUM))):
+        if not np.array_equal(run(), want):
+            raise AssertionError(f"store window staged {name} differs")
+        times = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            run()
+            times.append(time.monotonic() - t0)
+        staged[name] = {"bytes": nbytes, "ms": median(times) * 1e3}
+    out["staged"] = staged
+    return out
+
+
 def fan_out(fn, n: int, threads: int) -> None:
     """Call fn(i) for i in range(n) from ``threads`` threads at once, as
     PG workers submit to one OSD's batcher."""
@@ -700,7 +791,8 @@ def batcher_path(torch, np, registry, ecutil, counts) -> dict:
     OSD builds it, with its encode, decode, delta and packet lanes at
     full width from BATCH_THREADS submitting threads; every result is
     held to the batcher's own CPU twin (jerasure, native GF kernels)
-    byte for byte."""
+    byte for byte.  Returns the launches and the batcher, still running:
+    the store phase checksums through its backend."""
     from ceph_tpu_torch.osd.batcher import EncodeBatcher
     from ceph_tpu_torch.utils import device_ledger as ledger
     from ceph_tpu_torch.utils.config import default_config
@@ -855,9 +947,221 @@ def batcher_path(torch, np, registry, ecutil, counts) -> dict:
                   if "route_" in k and v}
         print(f"batcher: {faults}, route verdicts {routes}, "
               f"h2d EWMA {EncodeBatcher._h2d_bps / 1e9:.3f} GB/s")
-    finally:
+    except BaseException:
         b.stop()
-    return launches
+        raise
+    return launches, b
+
+
+def write_objects(store, objs, names) -> float:
+    """Write each object as one transaction from BATCH_THREADS threads,
+    as PG workers queue to one OSD's store, then flush; returns the
+    wall seconds from the first write to the end of the flush."""
+    from ceph_tpu_torch.store import GHObject, Transaction
+    t0 = time.monotonic()
+    fan_out(lambda i: store.queue_transactions([Transaction().write(
+        STORE_COLL, GHObject(names[i], 0), 0, objs[i])]), len(objs),
+        BATCH_THREADS)
+    store.flush()
+    return time.monotonic() - t0
+
+
+def store_path(torch, np, backend_fn, counts) -> dict:
+    """Drive a RAM BlueStore with its defaults, its checksums wired to
+    the batcher's backend as an OSD wires them: STORE_OBJS writes of
+    4 MiB from BATCH_THREADS threads.  Every object reads back
+    byte-equal (each block's CRC verified on read), every block's CRC
+    equals the host crc32c, every checksum batch of more than one block
+    ran on the card, and no fallback is counted.  Then the same writes
+    into a BlueStore with no backend attached: the host loop."""
+    from ceph_tpu_torch.ops import crclinear
+    from ceph_tpu_torch.store import BlueStore, GHObject, Transaction
+    from ceph_tpu_torch.store.blockstore import BLOCK, _Extents
+    from ceph_tpu_torch.utils.crc import crc32c
+
+    print(f"store phase on {card()} (nvidia-smi name, power limit)")
+    if not getattr(backend_fn(), "is_cuda", False):
+        raise AssertionError(f"store: the batcher's backend "
+                             f"{backend_fn()!r} is not on the card")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    objs = torch.randint(0, 256, (STORE_OBJS, 4 << 20), dtype=torch.uint8,
+                         device=DEV, generator=gen).cpu().numpy()
+    blobs = [o.tobytes() for o in objs]
+    names = [f"rbd_data.{i:016x}" for i in range(STORE_OBJS)]
+    nbytes = objs.nbytes
+    lin = crclinear.shared()
+    out = {}
+    for route in ("device", "host"):
+        store = BlueStore()
+        store.mkfs()
+        store.mount()
+        try:
+            store.queue_transactions([Transaction().create_collection(
+                STORE_COLL)])
+            if route == "device":
+                store.attach_device_batcher(backend_fn)
+            sizes = []
+            fold = store._crc_batch
+
+            def crc_batch(blocks, _fold=fold, _sizes=sizes):
+                _sizes.append(len(blocks))
+                return _fold(blocks)
+            store._crc_batch = crc_batch
+            fallbacks = lin.host_fallbacks
+            counts.reset()
+            wall = write_objects(store, blobs, names)
+            launches = counts.read()
+            csum = store.usage()["csum"]
+            multi = sum(1 for n in sizes if n > 1)
+            for i in range(STORE_OBJS):
+                if store.read(STORE_COLL, GHObject(names[i], 0)) != blobs[i]:
+                    raise AssertionError(f"store {route}: object {i} "
+                                         f"reads back wrong")
+            nblk = 0
+            index = {name: i for i, name in enumerate(names)}
+            for key, raw in store._db.iterate(f"X/{STORE_COLL}/"):
+                i = index[_unkey(key)[0]]
+                crcs = _Extents.load(raw).crcs
+                for lb, c in enumerate(crcs):
+                    if c != crc32c(blobs[i][lb * BLOCK:(lb + 1) * BLOCK]):
+                        raise AssertionError(f"store {route}: object {i} "
+                                             f"block {lb} CRC != crc32c")
+                nblk += len(crcs)
+            if nblk != nbytes // BLOCK or csum["blocks"] != nblk:
+                raise AssertionError(f"store {route}: {nblk} blocks "
+                                     f"checked, {csum['blocks']} summed")
+            if route == "device":
+                if (csum["device_batches"] != multi or multi < 1
+                        or launches["B1"] != multi):
+                    raise AssertionError(
+                        f"store: {csum['device_batches']} device batches "
+                        f"and {launches['B1']} B1 launches for {multi} "
+                        f"batches of more than one block")
+                if csum["device_errors"] or lin.host_fallbacks != fallbacks:
+                    raise AssertionError(
+                        f"store: {csum['device_errors']} device errors "
+                        f"({store.csum_last_error!r}), "
+                        f"{lin.host_fallbacks - fallbacks} crclinear host "
+                        f"fallbacks ({lin.last_error!r})")
+                out["launches"] = launches
+            elif launches["B1"] or csum["device_batches"]:
+                raise AssertionError("store with no backend used the card")
+            phases = store.dump_store()["phase_seconds"]
+            top = sorted(phases.items(), key=lambda kv: -kv[1])[:4]
+            out[route] = {"wall": wall, "batches": csum["batches"],
+                          "sizes": sizes}
+            print(f"store ({route} checksums): {STORE_OBJS} writes of 4 MiB "
+                  f"from {BATCH_THREADS} threads, {nblk} blocks in "
+                  f"{csum['batches']} checksum batches ({multi} of more "
+                  f"than one block, {max(sizes)} blocks the largest), "
+                  f"{csum['device_batches']} on the card, B1 launches "
+                  f"{launches['B1']}, {wall:.4f} s host to host = "
+                  f"{nbytes / 2**30 / wall:.3f} GiB/s; store ledger top "
+                  f"phases, s summed over txns: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in top))
+        finally:
+            store.umount()
+    out["object"] = objs[0]
+    return out
+
+
+def _unkey(key: str) -> tuple:
+    """(oid, shard) of an extent-map key X/<coll>/<hex oid>_<shard>."""
+    hexoid, shard = key.rsplit("/", 1)[1].rsplit("_", 1)
+    return bytes.fromhex(hexoid).decode(), int(shard)
+
+
+def scrub_bands(cm, s: int) -> tuple:
+    """Shard s's syndrome scales (one per parity row) and the bands of
+    its deep-scrub window, (1,) + its distinct nonzero scales, as the
+    JAX package's osd/ecbackend.py builds them."""
+    if s < K:
+        scales = [int(cm[e][s]) for e in range(M)]
+    else:
+        scales = [1 if e == s - K else 0 for e in range(M)]
+    nz = sorted({x for x in scales if x})
+    return scales, nz, (1,) + tuple(nz)
+
+
+def scrub_path(torch, np, registry, engine_mod, counts) -> dict:
+    """A deep-scrub-shaped window on the card: SCRUB_STRIPES k=8 m=4
+    stripes encoded through the `gpu` plugin, each shard's window of
+    SCRUB_STRIPES chunks through crclinear with its syndrome bands on
+    the plugin's backend (B1 in row groups), equal to the plain CPU
+    route; data CRCs equal crc32c, the syndrome partials XOR to zero
+    across the shards, and not after one flipped byte."""
+    from ceph_tpu_torch.ops import crclinear
+    from ceph_tpu_torch.ops.torch_engine import TorchBackend
+    from ceph_tpu_torch.utils.crc import crc32c
+
+    codec = registry.instance().factory(
+        "gpu", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
+                "device": DEV})
+    backend, cpu = codec.core.backend, TorchBackend("cpu")
+    cm = codec.core.coding_matrix
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    data = torch.randint(0, 256, (SCRUB_STRIPES, K, CHUNK),
+                         dtype=torch.uint8, device=DEV,
+                         generator=gen).cpu().numpy()
+    parity = codec.encode_batch_async(data).wait()
+    shards = [np.ascontiguousarray(data[:, s]) for s in range(K)]
+    shards += [np.ascontiguousarray(parity[:, e]) for e in range(M)]
+    lin = crclinear.shared()
+    fallbacks = lin.host_fallbacks
+    zero = np.uint32(lin.zero_crc(CHUNK))
+
+    def partials(parts, scales, nz):
+        return [parts[1 + nz.index(sc)] if sc else
+                np.zeros(SCRUB_STRIPES, np.uint32) for sc in scales]
+
+    counts.reset()
+    t0 = time.monotonic()
+    got = [lin._apply_window(shards[s], scrub_bands(cm, s)[2], backend)
+           for s in range(K + M)]
+    secs = time.monotonic() - t0
+    launches = counts.read()
+    want_launches = sum(len(scrub_bands(cm, s)[2]) for s in range(K + M))
+    if launches["B1"] != want_launches or lin.host_fallbacks != fallbacks:
+        raise AssertionError(
+            f"scrub: {launches['B1']} B1 launches for {want_launches} row "
+            f"groups, {lin.host_fallbacks - fallbacks} host fallbacks "
+            f"({lin.last_error!r})")
+    syn = np.zeros((M, SCRUB_STRIPES), dtype=np.uint32)
+    for s in range(K + M):
+        scales, nz, bands = scrub_bands(cm, s)
+        plain = lin._apply_window(shards[s], bands, cpu)
+        if not np.array_equal(got[s], plain):
+            raise AssertionError(f"scrub: shard {s} partials != CPU route")
+        if [int(c) for c in got[s][0] ^ zero] != [
+                crc32c(c) for c in shards[s]]:
+            raise AssertionError(f"scrub: shard {s} data CRCs != crc32c")
+        syn ^= np.stack(partials(got[s], scales, nz))
+    if syn.any():
+        raise AssertionError("scrub: syndrome partials do not cancel on "
+                             "a clean codeword")
+    s_bad, stripe_bad = 3, 5
+    bad = shards[s_bad].copy()
+    bad[stripe_bad, 1000] ^= 0x5A
+    scales, nz, bands = scrub_bands(cm, s_bad)
+    syn ^= np.stack(partials(got[s_bad], scales, nz))
+    syn ^= np.stack(partials(lin._apply_window(bad, bands, backend),
+                             scales, nz))
+    hit = sorted(set(np.nonzero(syn)[1].tolist()))
+    if hit != [stripe_bad] or lin.host_fallbacks != fallbacks:
+        raise AssertionError(f"scrub: a flipped byte in stripe "
+                             f"{stripe_bad} shows in stripes {hit}")
+    sizes = [tuple(lin.block_bitmatrix(scrub_bands(cm, s)[2]).shape)
+             for s in range(K + M)]
+    print(f"scrub window: {K + M} shards of {SCRUB_STRIPES} x {CHUNK} B "
+          f"({SCRUB_STRIPES * CHUNK >> 20} MiB a shard), bitmatrices "
+          f"{sorted(set(sizes), reverse=True)}, B1 launches "
+          f"{launches['B1']} (one a row group) in {secs:.4f} s host to "
+          f"host; every shard equal to the CPU route, data CRCs equal "
+          f"crc32c, syndromes cancel, a flipped byte in shard {s_bad} "
+          f"stripe {stripe_bad} shows in stripe {hit}")
+    big = max(range(K + M), key=lambda s: len(scrub_bands(cm, s)[2]))
+    return {"launches": launches, "shard": shards[big],
+            "bands": scrub_bands(cm, big)[2], "backend": backend}
 
 
 # phase -> the kernel its path must launch
@@ -869,7 +1173,7 @@ PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "batcher_encode_1": "B1", "batcher_encode_2": "B1",
                 "batcher_encode_burst": "B1",
                 "batcher_decode": "B1", "batcher_delta": "B1",
-                "batcher_packet": "B2"}
+                "batcher_packet": "B2", "store": "B1", "scrub": "B1"}
 KERNELS = {
     "B1": ("gf8_bitplane_apply (B1)", "ceph_tpu_torch/csrc/gf8_bitplane.cu",
            "ceph_tpu/ops/jax_engine.py:382",
@@ -910,8 +1214,15 @@ def main() -> int:
         check_packet(torch, mods, carry, registry, torch_engine)
         run = main_path(torch, np, registry, ecutil, engine, counts)
         pkt = packet_path(torch, np, registry, ecutil, engine, counts)
-        bat = batcher_path(torch, np, registry, ecutil, counts)
-        launches = {**run["launches"], **pkt["launches"], **bat}
+        bat, batcher = batcher_path(torch, np, registry, ecutil, counts)
+        try:
+            store = store_path(torch, np, lambda: batcher._last_backend,
+                               counts)
+        finally:
+            batcher.stop()
+        scrub = scrub_path(torch, np, registry, engine, counts)
+        launches = {**run["launches"], **pkt["launches"], **bat,
+                    "store": store["launches"], "scrub": scrub["launches"]}
         for phase, n in launches.items():
             if n[PHASE_KERNEL[phase]] < 1:
                 raise AssertionError(
@@ -932,7 +1243,11 @@ def main() -> int:
                              info["ragged_bitmatrix"], info["d3"], 1000),
             "B3": measure_b3(torch, packet_xor_kernel, carry, torch_engine,
                              info["bitmatrix"], info["d1"], 2048)}
-        for name, me in [*meas.items(), *cross.items()]:
+        crc = measure_crc(torch, np, gf8_kernel, carry, torch_engine,
+                          store["object"], scrub)
+        for name, me in [*meas.items(), *cross.items(),
+                         *((f"B1 {k}", v) for k, v in crc.items()
+                           if k != "staged")]:
             if me["max_abs_err"] != 0:
                 raise AssertionError(f"{name} != plain at its timed shape")
         regs = {"B1": gf8_kernel.regs(), "B2": packet_kernel.regs(),
@@ -965,6 +1280,21 @@ def main() -> int:
               f"{me['ms']:.4f} ms, bound {me['bound_ms']:.4f} ms "
               f"({me['bound_ms'] / me['ms']:.1%} of it reached), plain "
               f"{me['plain_ms']:.4f} ms")
+    for name in ("store", "scrub_group", "scrub_window"):
+        me = crc[name]
+        (din, dout), groups = me["shape"], me.get("groups", 1)
+        print(f"B1 at crclinear's {name} shape {list(din)} -> {list(dout)}"
+              f" ({groups} launch{'es' if groups > 1 else ''}): median "
+              f"{me['ms']:.4f} ms of {len(me['runs_ms'])} runs, bound "
+              f"{me['bound_ms']:.6f} ms ({me['bound_by']}, "
+              f"{me['bound_ms'] / me['ms']:.1%} of it reached), plain "
+              f"{me['plain_ms']:.4f} ms")
+    st = crc["staged"]
+    print(f"store checksum window host to host through the backend: staged "
+          f"at its own length {st['own']['bytes']} bytes, "
+          f"{st['own']['ms']:.4f} ms; padded as before "
+          f"{st['padded']['bytes']} bytes, {st['padded']['ms']:.4f} ms "
+          f"(median of 5)")
     for key in ("B1", "B2", "B3"):
         (nregs, local), me = regs[key], meas[key]
         tile = f" (tile {me['tile']} bytes)" if "tile" in me else ""

@@ -7,7 +7,9 @@ a card and no jax it runs alone:
 
 Kernels B1, B2 and B3 are held against their plain PyTorch versions and
 the numpy oracle, and the `gpu` plugin's CUDA path, byte codes and packet
-codes, against the numpy oracle."""
+codes, against the numpy oracle.  B1 also takes crclinear's bitmatrices
+of many syndrome bands (split into row groups), and BlueStore's checksum
+fold runs on it from the store's applier thread."""
 import numpy as np
 import pytest
 import torch
@@ -370,3 +372,89 @@ def test_batcher_encode_lane_on_cuda(card):
     finally:
         b.stop()
         EncodeBatcher.reset_learning()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bands", [(1, 2, 3, 4), (1, 0x8E, 0x47, 0xF4, 3)])
+def test_b1_takes_crclinear_windows_of_many_bands(card, bands):
+    """A [32 * bands, 4096] bitmatrix is past one launch's tables: the
+    backend applies it in row groups of 4 outputs, one launch each,
+    byte-equal to the plain version of the whole bitmatrix."""
+    from ceph_tpu_torch.ops import crclinear
+    from ceph_tpu_torch.ops.torch_engine import TorchBackend
+
+    M = crclinear.shared().block_bitmatrix(bands)
+    rng = np.random.default_rng(len(bands))
+    x = rng.integers(0, 256, (64, 512, 8), dtype=np.uint8)
+    be = TorchBackend()
+    before = gf8_kernel.launches
+    got = be.apply_bitmatrix_bytes(M, x, 8)
+    assert gf8_kernel.launches == before + len(bands)
+    want = gf8_kernel.gf8_apply_plain(M, torch.from_numpy(x).to(card))
+    assert np.array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_crclinear_at_the_store_shape(card):
+    """BlueStore folds one apply entry's checksums at once: a 4 MiB
+    write is 1024 blocks of 4 KiB in one window, [1024, 512, 8] on B1,
+    equal to the host route and to crc32c."""
+    from ceph_tpu_torch.ops import crclinear
+    from ceph_tpu_torch.ops.torch_engine import TorchBackend
+    from ceph_tpu_torch.utils.crc import crc32c
+
+    lin = crclinear.Crc32cLinear()
+    rng = np.random.default_rng(1024)
+    flat = rng.integers(0, 256, 1024 * 4096, dtype=np.uint8)
+    blocks = [flat[i * 4096:(i + 1) * 4096].tobytes()
+              for i in range(1024)]
+    before = gf8_kernel.launches
+    got = lin.crc_batch(blocks, backend=TorchBackend())
+    assert gf8_kernel.launches == before + 1 and lin.host_fallbacks == 0
+    assert [int(g) for g in got] == [crc32c(b) for b in blocks]
+    assert np.array_equal(got, lin.crc_batch(blocks))
+
+
+@pytest.mark.cuda
+def test_bluestore_checksums_on_b1_from_its_applier(card):
+    """Writes from several threads through a RAM BlueStore wired to a
+    CUDA backend: every checksum batch of more than one block runs on
+    B1 from the applier thread, none falls back, every object reads
+    back (verifying each block's CRC)."""
+    import threading
+
+    from ceph_tpu_torch.ops import crclinear
+    from ceph_tpu_torch.ops.torch_engine import TorchBackend
+    from ceph_tpu_torch.store import BlueStore, GHObject, Transaction
+
+    be = TorchBackend()
+    store = BlueStore()
+    store.mkfs()
+    store.mount()
+    store.attach_device_batcher(lambda: be)
+    store.queue_transactions([Transaction().create_collection("1.0s0")])
+    rng = np.random.default_rng(4)
+    objs = [rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+            for _ in range(32)]
+    fallbacks = crclinear.shared().host_fallbacks
+    before = gf8_kernel.launches
+
+    def write(i):
+        store.queue_transactions([Transaction().write(
+            "1.0s0", GHObject(f"o{i}", 0), 0, objs[i])])
+    threads = [threading.Thread(target=write, args=(i,))
+               for i in range(len(objs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    store.flush()
+    try:
+        csum = store.usage()["csum"]
+        assert csum["device_batches"] >= 1 and csum["device_errors"] == 0
+        assert gf8_kernel.launches - before == csum["device_batches"]
+        assert crclinear.shared().host_fallbacks == fallbacks
+        for i, obj in enumerate(objs):
+            assert store.read("1.0s0", GHObject(f"o{i}", 0)) == obj
+    finally:
+        store.umount()
