@@ -4,16 +4,26 @@ It sits beside the JAX package, mirrors its module names, and shares no
 code with it: the JAX package stays the reference the port is held
 against.  Ported so far, from the codec up:
   ceph_tpu_torch.ops    - GF(2^w) tables, coding matrices, CodecCore, the
-                          torch engine and kernel B1 (csrc/gf8_bitplane.cu)
+                          torch engine, kernels B1, B2 and B3 (csrc/) and
+                          crclinear, CRC32C as a bitmatrix apply
   ceph_tpu_torch.ec     - erasure-code interface, plugin registry, the CPU
                           `jerasure` plugin and the flagship `gpu` plugin
   ceph_tpu_torch.osd    - ecutil: stripe algebra, batched object encode and
                           decode, HashInfo CRCs; batcher: one OSD's
                           EncodeBatcher, coalescing writes, degraded reads
-                          and overwrites into one device call per geometry
+                          and overwrites into one device call per geometry;
+                          the PG backends (ecbackend, replicatedbackend,
+                          backend), pglog, snaps and osdmap
+  ceph_tpu_torch.store  - ObjectStore, MemStore, FileStore, BlockStore and
+                          BlueStore, whose checksums run on B1 (crclinear)
+  ceph_tpu_torch.msg    - Message, the type registry, the frame codec and
+                          every message type (the socket Messenger is not
+                          ported yet)
+  ceph_tpu_torch.crush  - CRUSH mapper and wrapper (placement)
+  ceph_tpu_torch.compressor - the compressor registry (frames, BlueStore)
   ceph_tpu_torch.utils  - crc32c, and what the batcher stands on: config,
                           perf counters, flight recorder, device ledger,
-                          faults, tuner, locks, lockdep, op tracker
+                          faults, tuner, locks, lockdep, op tracker, hops
 
 Entry points run on CUDA unless the caller asks for the CPU.
 """

@@ -271,13 +271,15 @@ class Crc32cLinear:
             nbands, Bn, nblk)
 
     def _apply_window(self, stack: np.ndarray, scales: Sequence[int],
-                      backend=None) -> np.ndarray:
+                      backend=None, strict: bool = False) -> np.ndarray:
         """[B, L] uint8 window -> [nbands, B] folded LINEAR partials.
         One bitmatrix apply for the whole window (device when a codec
         backend is supplied — same byte-domain contraction as the EC
         kernels — else a host matmul).  A backend that raises costs no
         checksum: the host computes the window, and ``host_fallbacks``
-        and ``last_error`` record it."""
+        and ``last_error`` record it.  With ``strict`` the exception
+        propagates instead, for a caller that counts its own
+        fallback (the ECBackend's deep scrub)."""
         stack = np.asarray(stack, dtype=np.uint8)
         Bn = stack.shape[0]
         x = self.stack_blocks(stack)                 # [B, block, nblk]
@@ -288,6 +290,8 @@ class Crc32cLinear:
                 out = np.asarray(
                     backend.apply_bitmatrix_bytes(M, x, 8))
             except Exception as e:
+                if strict:
+                    raise
                 with self._lock:
                     self.host_fallbacks += 1
                     self.last_error = e
@@ -304,7 +308,8 @@ class Crc32cLinear:
         return np.stack([self.fold_partials(parts[s])
                          for s in range(len(scales))], axis=0)
 
-    def crc_batch(self, chunks: Sequence, backend=None) -> np.ndarray:
+    def crc_batch(self, chunks: Sequence, backend=None,
+                  strict: bool = False) -> np.ndarray:
         """Batch crc32c (full init/final convention) over a window of
         byte strings in one apply; rows are front-padded to a common
         length (leading zeros are inert for the linear part, and the
@@ -316,7 +321,8 @@ class Crc32cLinear:
             if lens[i]:
                 stack[i, Lmax - lens[i]:] = np.frombuffer(
                     bytes(c), dtype=np.uint8)
-        lin = self._apply_window(stack, (1,), backend=backend)[0]
+        lin = self._apply_window(stack, (1,), backend=backend,
+                                 strict=strict)[0]
         zero = np.array([self.zero_crc(n) for n in lens],
                         dtype=np.uint32)
         return lin ^ zero

@@ -45,24 +45,37 @@ Phases, each of which must pass or the script exits non-zero:
      block's CRC equals the host crc32c, every batch of more than one
      block ran on the card, and no fallback is counted; the same writes
      into a BlueStore with no backend (the host loop) for comparison;
-  7. a deep-scrub-shaped window (as the JAX package's
-     osd/ecbackend.py builds it): 128 k=8 m=4 stripes of 128 KiB chunks
-     encoded through the `gpu` plugin, each shard's 16 MiB window with
-     its syndrome bands through crclinear on B1 (bitmatrices of up to
-     [160, 4096], applied in row groups), equal to the CPU route; the
-     syndrome partials cancel across the 12 shards and do not after one
-     flipped byte;
+  7. drive the erasure-coded PG backend (ceph_tpu_torch/osd/ecbackend.py)
+     for one PG of a k=8 m=4 pool with the 4 KiB stripe unit, its 12
+     shards placed on 12 of 13 OSDs by the port's OSDMap (an `indep`
+     erasure rule), one in-process host and MemStore a shard, every
+     sub-op through the port's frame codec, the primary's EncodeBatcher
+     built as in phase 5: 128 writes of 4 MiB from 8 threads (two
+     segments each, encode lane), read back; 128 overwrites of two 4 KiB
+     columns of one stripe (delta lane, no fallback); 128 degraded reads
+     with shards (1, 5, 9, 11) down (decode lane); shard 3 wiped and
+     recovered for every object (decode lane; rebuild MB/s); a deep
+     scrub with syndromes on all 12 hosts through crclinear on B1
+     (windows of 16 MiB, bitmatrices up to [160, 4096] in row groups;
+     the first window of every host equal to the CPU route, data CRCs
+     equal crc32c, syndromes cancel and show a flipped byte in its
+     object alone); and 16 writes of 4 MiB to a cauchy_good k=10 m=4
+     pool (B2).  Every shard equals the host encode of the jerasure
+     plugin; any twin route, device error or counted host fallback
+     fails the phase;
   8. fail unless every phase launched the kernel of its path: B1 on the
      byte-code phases, the batcher's encode, decode and delta lanes, the
-     store and the scrub window, B2 on the packetsize-2048 phases, the
-     corpus and the batcher's packet lane, B3 on the packetsize-1000
-     phases;
+     store and the ECBackend's writes, overwrites, degraded reads,
+     recovery and scrub, B2 on the packetsize-2048 phases, the corpus,
+     the batcher's packet lane and the ECBackend's cauchy_good pool, B3
+     on the packetsize-1000 phases;
   9. time each kernel (median of CUDA-event-timed launches) beside its
      bound and its plain version at the shapes of its path, and B2 and B3
-     each at the other's shape too, B1 also at the store's and the scrub
-     window's shapes; print each one's share of its bound, the
-     registers, local and shared memory each kernel's block uses, and
-     the static SASS opcode counts of B1's main-path kernel.
+     each at the other's shape too, B1 also at the store's shape and
+     at the ECBackend's own deep-scrub window; print each one's share of
+     its bound, the registers, local and shared memory each kernel's
+     block uses, and the static SASS opcode counts of B1's main-path
+     kernel.
 Before the last line it prints the card's name and power limit and a
 `kernels` JSON line; the last line is the JSON result.  With no CUDA
 device, or outside the repo, it exits non-zero and prints no result.
@@ -119,8 +132,21 @@ PKT_OPS = 64               # one-stripe cauchy_good writes of 4 MiB
 # store phase: a RAM BlueStore with its defaults; 4 MiB objects
 STORE_OBJS = 128           # 512 MiB of 4 KiB blocks
 STORE_COLL = "1.0s0"
-# scrub window: ec_tpu_scrub_window_bytes (16 MiB) of 128 KiB chunks
-SCRUB_STRIPES = 128
+# ecbackend phase: one PG of a k=8 m=4 pool with the 4 KiB stripe unit
+# (osd_pool_erasure_code_stripe_unit), 4 MiB objects (RBD/RGW), acting
+# set from the OSDMap of 13 OSDs; and a cauchy_good k=10 m=4 pool whose
+# 64 KiB stripe unit is the smallest the plugin aligns at packetsize 2048
+ECB_OSDS = 13
+ECB_PG_NUM = 256
+ECB_STRIPE_UNIT = 4096
+ECB_OBJ_BYTES = 4 << 20
+ECB_OBJS = 128             # 512 MiB of objects
+ECB_THREADS = 8
+DELTA_COL = 2              # overwrites of columns (2, 3) of one stripe
+LOST = 3                   # the shard wiped and recovered
+PKT_STRIPE_UNIT = 64 << 10
+PKT_ECB_OPS = 16
+PKT_ECB_THREADS = 4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8 ops/s
 HBM_BPS = 3.35e12
@@ -643,8 +669,9 @@ def measure_crc(torch, np, gf8_kernel, carry, torch_engine, store_obj,
                 scrub) -> dict:
     """B1 at crclinear's shapes, each against its plain version: the
     store's checksum window (one 4 MiB write: [1024, 512, 8] -> [1024,
-    4, 8]) and one row group of the scrub window ([128, 512, 256] ->
-    [128, 4, 256]); the whole scrub window's split apply (one launch a
+    4, 8]) and one row group of a data shard's window in the ECBackend's
+    deep scrub (32 objects of 512 KiB: [32, 512, 1024] -> [32, 4,
+    1024]); that whole window's split apply (one launch a
     row group, each re-reading the input) against the bound of reading
     it once; and one store window host to host through the backend,
     staged at its own length against staged padded to LENGTH_QUANTUM
@@ -1071,97 +1098,569 @@ def _unkey(key: str) -> tuple:
     return bytes.fromhex(hexoid).decode(), int(shard)
 
 
-def scrub_bands(cm, s: int) -> tuple:
-    """Shard s's syndrome scales (one per parity row) and the bands of
-    its deep-scrub window, (1,) + its distinct nonzero scales, as the
-    JAX package's osd/ecbackend.py builds them."""
-    if s < K:
-        scales = [int(cm[e][s]) for e in range(M)]
-    else:
-        scales = [1 if e == s - K else 0 for e in range(M)]
-    nz = sorted({x for x in scales if x})
-    return scales, nz, (1,) + tuple(nz)
+def pg_acting(k: int, m: int, n_osds: int, stripe_unit: int) -> list:
+    """The acting set of PG 1.0 of a k+m erasure pool, from the port's
+    OSDMap: n_osds OSDs, one host each (build_flat_map), and the `indep`
+    erasure rule with a host failure domain that the monitor builds for
+    an erasure pool.  Its k+m shards must land on distinct OSDs."""
+    from ceph_tpu_torch.crush import build_flat_map
+    from ceph_tpu_torch.osd.osdmap import Incremental, OSDMap, PGid, PGPool
+    osdmap = OSDMap()
+    crush = build_flat_map(n_osds)
+    inc = Incremental(1)
+    inc.new_crush = crush
+    inc.new_max_osd = n_osds
+    for o in range(n_osds):
+        inc.new_up[o] = ("127.0.0.1", 6800 + o)
+    rule = crush.add_simple_rule(f"ecrule_k{k}m{m}", "default", "host",
+                                 mode="indep", pool_type="erasure")
+    inc.new_pools[1] = PGPool(
+        name=f"ec_k{k}m{m}", pool_id=1, type="erasure", size=k + m,
+        min_size=k + (1 if m >= 2 else 0), pg_num=ECB_PG_NUM,
+        crush_rule=rule, erasure_code_profile=f"k{k}m{m}",
+        stripe_width=k * stripe_unit)
+    osdmap.apply_incremental(inc)
+    _up, _upp, acting, _ap = osdmap.pg_to_up_acting_osds(PGid(1, 0))
+    if len(acting) != k + m or None in acting or \
+            len(set(acting)) != k + m:
+        raise AssertionError(f"PG 1.0 of k={k} m={m} maps to {acting}")
+    return acting
 
 
-def scrub_path(torch, np, registry, engine_mod, counts) -> dict:
-    """A deep-scrub-shaped window on the card: SCRUB_STRIPES k=8 m=4
-    stripes encoded through the `gpu` plugin, each shard's window of
-    SCRUB_STRIPES chunks through crclinear with its syndrome bands on
-    the plugin's backend (B1 in row groups), equal to the plain CPU
-    route; data CRCs equal crc32c, the syndrome partials XOR to zero
-    across the shards, and not after one flipped byte."""
-    from ceph_tpu_torch.ops import crclinear
-    from ceph_tpu_torch.ops.torch_engine import TorchBackend
+class PGCluster:
+    """One PG of an erasure pool on in-process hosts, as the reference's
+    backend tests drive it and as an OSD would wire it: one host for
+    each OSD of the acting set, each with a MemStore and an ECBackend;
+    the primary's host carries the OSD's EncodeBatcher; every sub-op
+    goes through the port's encode_frame_parts and decode_frame_body on
+    its way to the other host (the messenger, minus the socket); one PG
+    lock, which the batcher's continuations and the stores' commit
+    callbacks re-enter under."""
+
+    def __init__(self, codec, stripe_width: int, acting: list, conf,
+                 batcher):
+        import threading
+
+        from ceph_tpu_torch.osd.backend import PGHost
+        from ceph_tpu_torch.osd.ecbackend import ECBackend
+        from ceph_tpu_torch.store import MemStore, Transaction
+
+        self.lock = threading.RLock()
+        self.acting = [(s, osd) for s, osd in enumerate(acting)]
+        self.store_s = 0.0       # host seconds in the stores' applies
+        tally = threading.Lock()
+        cl = self
+
+        class Host(PGHost):
+            def __init__(self, shard, osd):
+                self._shard, self._osd = shard, osd
+                self.lock, self.conf = cl.lock, conf
+                self.encode_batcher = batcher if shard == 0 else None
+                self._store = MemStore()
+                self._store.mount()
+                self._store.mkfs()
+                self._store.queue_transactions(
+                    [Transaction().create_collection(self.coll)])
+                self.logged = []
+                apply = self._store.queue_transactions
+
+                def timed(txns, *a, **kw):
+                    t0 = time.monotonic()
+                    try:
+                        return apply(txns, *a, **kw)
+                    finally:
+                        with tally:
+                            cl.store_s += time.monotonic() - t0
+                self._store.queue_transactions = timed
+
+            whoami = property(lambda self: self._osd)
+            pgid_str = property(lambda self: "1.0")
+            own_shard = property(lambda self: self._shard)
+            store = property(lambda self: self._store)
+            epoch = property(lambda self: 1)
+
+            def coll_of(self, shard):
+                return f"1.0s{shard}"
+
+            def acting_shards(self):
+                return cl.acting
+
+            def send_shard(self, osd, msg):
+                cl.route(osd, msg)
+
+            def prepare_log_txn(self, txn, log_entries):
+                self.logged.extend(log_entries)
+
+            def on_local_commit(self, fn):
+                with cl.lock:
+                    fn()
+
+        self.hosts = {osd: Host(s, osd) for s, osd in self.acting}
+        for host in self.hosts.values():
+            host.store.flush()
+            host.backend = ECBackend(host, codec, stripe_width)
+        self.by_shard = [self.hosts[osd] for osd in acting]
+        self.primary = self.by_shard[0].backend
+        self.frames = 0
+        self.frame_bytes = 0
+        self.frame_s = 0.0       # host seconds framing and unframing
+
+    def route(self, osd, msg):
+        from ceph_tpu_torch.msg import message as wire
+        t0 = time.monotonic()
+        parts = wire.encode_frame_parts(msg)
+        mtype, seq, plen = wire.decode_frame_header(parts[0])
+        got = wire.decode_frame_body(mtype, seq, parts[0],
+                                     b"".join(parts[1:-1]), parts[-1])
+        dt = time.monotonic() - t0
+        with self.lock:
+            self.frames += 1
+            self.frame_bytes += plen
+            self.frame_s += dt
+            if not self.hosts[osd].backend.handle_message(got):
+                raise AssertionError(f"osd.{osd} did not handle "
+                                     f"{type(got).__name__}")
+
+    def flush(self):
+        for host in self.hosts.values():
+            host.store.flush()
+
+    def shard_bytes(self, shard: int, oid: str) -> bytes:
+        from ceph_tpu_torch.store import GHObject
+        return self.by_shard[shard].store.read(f"1.0s{shard}",
+                                               GHObject(oid, shard))
+
+    def stop(self):
+        for host in self.hosts.values():
+            host.store.umount()
+
+
+def drive(cl, n: int, threads: int, start) -> tuple:
+    """Start op i with ``start(i, cb)`` under the PG lock from
+    ``threads`` threads, as PG workers do, and wait for every callback;
+    returns the callbacks' arguments and the seconds from the first
+    start to the last callback."""
+    import threading
+    out = [None] * n
+    left = threading.Semaphore(0)
+
+    def one(i):
+        def cb(*res):
+            out[i] = res
+            left.release()
+        with cl.lock:
+            start(i, cb)
+    t0 = time.monotonic()
+    fan_out(one, n, threads)
+    for _ in range(n):
+        if not left.acquire(timeout=600):
+            raise AssertionError("an ECBackend op never completed")
+    return out, time.monotonic() - t0
+
+
+def lane_counts(b, cl) -> dict:
+    """The batcher's lane counters and the backend's host routes."""
+    p = cl.primary
+    return {"calls": b.calls, "reqs": b.reqs_total,
+            "dec_calls": b.dec_calls, "dec_reqs": b.dec_reqs,
+            "delta_calls": b.delta_calls, "delta_reqs": b.delta_reqs,
+            "twin_routes": b.cpu_reqs + b.dec_cpu_reqs + b.delta_cpu_reqs
+            + p.twin_routes,
+            "device_errors": b.device_errors + p.device_errors,
+            "delta_rmw_ops": p.delta_rmw_ops,
+            "delta_rmw_fallbacks": p.delta_rmw_fallbacks,
+            "frames": cl.frames, "frame_bytes": cl.frame_bytes,
+            "frame_s": cl.frame_s, "store_s": cl.store_s}
+
+
+def sub_phase(name, b, cl, counts, n, threads, start, nbytes, calls,
+              reqs, kernel) -> tuple:
+    """Run one sub-phase of the ecbackend phase with the launch counts
+    zeroed just before it; print its line; fail on a twin route, a
+    device error or a kernel that did not launch."""
+    before = lane_counts(b, cl)
+    seen = len(b.ledger_accum.recent())
+    counts.reset()
+    out, wall = drive(cl, n, threads, start)
+    launches = counts.read()
+    cl.flush()
+    after = lane_counts(b, cl)
+    d = {k: after[k] - before[k] for k in after}
+    tiles = b.ledger_accum.recent()[seen:]
+    span = (max(led["deliver"] for led in tiles)
+            - min(led["stage_acquire"] for led in tiles)) if tiles else 0.0
+    print(f"ecbackend {name}: {n} ops from {threads} threads, "
+          f"{nbytes / 2**30:.3f} GiB in {wall:.4f} s host to host = "
+          f"{nbytes / 2**30 / wall:.3f} GiB/s; lane {d[calls]} calls for "
+          f"{d[reqs]} requests; launches B1 {launches['B1']} B2 "
+          f"{launches['B2']} B3 {launches['B3']}; twin routes "
+          f"{d['twin_routes']}, device errors {d['device_errors']}; "
+          f"{d['frames']} sub-op frames of {d['frame_bytes'] / 2**30:.3f} "
+          f"GiB; host seconds summed over threads: framing "
+          f"{d['frame_s']:.4f}, store applies {d['store_s']:.4f}; the "
+          f"batcher's {len(tiles)} device tiles span {span:.4f} s from the "
+          f"first staged to the last delivered")
+    if d["twin_routes"] or d["device_errors"]:
+        raise AssertionError(f"ecbackend {name}: {d['twin_routes']} twin "
+                             f"routes, {d['device_errors']} device errors "
+                             f"({cl.primary.last_device_error!r})")
+    if launches[kernel] < 1:
+        raise AssertionError(f"ecbackend {name}: {kernel} did not launch")
+    return out, wall, launches, d
+
+
+def ecbackend_path(torch, np, registry, ecutil, counts) -> dict:
+    """Drive the port's ECBackend for one PG of a k=8 m=4 pool (4 KiB
+    stripe unit, acting set from the OSDMap) over the primary's
+    EncodeBatcher at full width: ECB_OBJS writes of 4 MiB from
+    ECB_THREADS threads, as many 2-column overwrites, degraded reads of
+    every object with shards ERASED down, recovery of every object's
+    shard 3 after its store is wiped, and a deep scrub with syndromes on
+    all 12 hosts; then a cauchy_good k=10 m=4 pool's writes.  Every
+    shard is held to the host encode (the jerasure plugin through
+    ecutil.encode), every read to what was written."""
+    from ceph_tpu_torch.osd.backend import Mutation
+    from ceph_tpu_torch.osd.batcher import EncodeBatcher
+    from ceph_tpu_torch.osd.pglog import MODIFY, LogEntry
+    from ceph_tpu_torch.utils.config import default_config
     from ceph_tpu_torch.utils.crc import crc32c
 
-    codec = registry.instance().factory(
-        "gpu", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
-                "device": DEV})
-    backend, cpu = codec.core.backend, TorchBackend("cpu")
-    cm = codec.core.coding_matrix
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
-    data = torch.randint(0, 256, (SCRUB_STRIPES, K, CHUNK),
-                         dtype=torch.uint8, device=DEV,
-                         generator=gen).cpu().numpy()
-    parity = codec.encode_batch_async(data).wait()
-    shards = [np.ascontiguousarray(data[:, s]) for s in range(K)]
-    shards += [np.ascontiguousarray(parity[:, e]) for e in range(M)]
+    print(f"ecbackend phase on {card()} (nvidia-smi name, power limit)")
+    conf = default_config()
+    for name, value in (("ec_tpu_batch_stripes", BATCH_STRIPES),
+                        ("ec_tpu_queue_window_us", BATCH_WINDOW_US),
+                        ("ec_tpu_fallback_cpu", False),
+                        ("osd_ec_prewarm", True)):
+        conf.set(name, value)
+    EncodeBatcher.reset_learning()
+    b = EncodeBatcher(conf)
+    out = {"launches": {}}
+    clusters = []
+    try:
+        codec = registry.instance().factory(
+            "gpu", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
+                    "device": DEV})
+        sw = K * ECB_STRIPE_UNIT
+        sinfo = ecutil.StripeInfo(K, sw)
+        acting = pg_acting(K, M, ECB_OSDS, ECB_STRIPE_UNIT)
+        warm = b.prewarm(codec, sinfo)
+        if warm is not None:
+            warm.join()
+        if b.prewarm_error is not None:
+            raise AssertionError(f"prewarm: {b.prewarm_error!r}")
+        twin = b.cpu_twin(codec, sinfo)
+        cl = PGCluster(codec, sw, acting, conf, b)
+        clusters.append(cl)
+        p = cl.primary
+        print(f"ecbackend: PG 1.0 of a k={K} m={M} pool on {ECB_OSDS} OSDs, "
+              f"acting {acting}, stripe width {sw}, {ECB_OBJS} objects of "
+              f"{ECB_OBJ_BYTES >> 20} MiB, segment {p.seg_bytes} bytes")
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+        objs = torch.randint(0, 256, (ECB_OBJS, ECB_OBJ_BYTES),
+                             dtype=torch.uint8, device=DEV,
+                             generator=gen).cpu().numpy()
+        names = [f"rbd_data.ec.{i:016x}" for i in range(ECB_OBJS)]
+        blobs = [o.tobytes() for o in objs]
+        versions = {}
+        nbytes = objs.nbytes
+        shard_len = ECB_OBJ_BYTES // K
+
+        def check_shards(what, i, data, hinfo):
+            want = ecutil.encode(sinfo, twin, data)
+            for s in range(K + M):
+                got = cl.shard_bytes(s, names[i])
+                if got != bytes(want[s]):
+                    raise AssertionError(f"ecbackend {what}: object {i} "
+                                         f"shard {s} != host encode")
+                if hinfo:
+                    from ceph_tpu_torch.store import GHObject
+                    h = ecutil.HashInfo.decode(cl.by_shard[s].store.getattr(
+                        f"1.0s{s}", GHObject(names[i], s),
+                        ecutil.HINFO_KEY))
+                    if h.crcs[s] != crc32c(got):
+                        raise AssertionError(f"ecbackend {what}: object {i}"
+                                             f" shard {s} hinfo CRC")
+
+        def write(i, cb):
+            versions[i] = (1, i + 1)
+            p.submit_transaction(
+                names[i], Mutation(writes=[(0, blobs[i])]), versions[i],
+                [LogEntry(MODIFY, names[i], versions[i])], cb)
+
+        def read(i, cb):
+            p.objects_read(names[i], 0, ECB_OBJ_BYTES, cb)
+
+        def check_reads(what, res):
+            for i, (r, data) in enumerate(res):
+                if r != 0 or bytes(data) != blobs[i]:
+                    raise AssertionError(f"ecbackend {what}: object {i} "
+                                         f"read {r}, bytes differ")
+
+        # 1. writes: two segments each through the encode lane
+        res, wall, launches, d = sub_phase(
+            "writes", b, cl, counts, ECB_OBJS, ECB_THREADS, write, nbytes,
+            "calls", "reqs", "B1")
+        if any(r != (0,) for r in res):
+            raise AssertionError(f"ecbackend writes: results {set(res)}")
+        for i in range(ECB_OBJS):
+            check_shards("writes", i, blobs[i], hinfo=True)
+        out["launches"]["ecbackend_write"] = launches
+        out["write"] = wall
+        res, rwall = drive(cl, ECB_OBJS, ECB_THREADS, read)
+        check_reads("healthy read", res)
+        print(f"ecbackend healthy reads: {ECB_OBJS} objects in {rwall:.4f} s "
+              f"host to host = {nbytes / 2**30 / rwall:.3f} GiB/s, every "
+              f"byte as written; every shard equal to the host encode, "
+              f"every hinfo CRC equal to crc32c")
+
+        # 2. delta overwrites: 8 KiB, two 4 KiB columns of one stripe
+        rng = np.random.default_rng(SEED + 8)
+        patches = rng.integers(0, 256, (ECB_OBJS, 2 * ECB_STRIPE_UNIT),
+                               dtype=np.uint8)
+        stripes = ECB_OBJ_BYTES // sw
+        offs = [(i % stripes) * sw + DELTA_COL * ECB_STRIPE_UNIT
+                for i in range(ECB_OBJS)]
+
+        def overwrite(i, cb):
+            versions[i] = (1, ECB_OBJS + i + 1)
+            p.submit_transaction(
+                names[i], Mutation(writes=[(offs[i], patches[i].tobytes())]),
+                versions[i], [LogEntry(MODIFY, names[i], versions[i])], cb)
+        res, wall, launches, d = sub_phase(
+            "delta overwrites", b, cl, counts, ECB_OBJS, ECB_THREADS,
+            overwrite, patches.nbytes, "delta_calls", "delta_reqs", "B1")
+        if any(r != (0,) for r in res):
+            raise AssertionError(f"ecbackend delta: results {set(res)}")
+        if d["delta_rmw_ops"] != ECB_OBJS or d["delta_rmw_fallbacks"]:
+            raise AssertionError(
+                f"ecbackend delta: {d['delta_rmw_ops']} delta ops, "
+                f"{d['delta_rmw_fallbacks']} fallbacks for {ECB_OBJS}")
+        for i in range(ECB_OBJS):
+            o = objs[i]
+            o[offs[i]:offs[i] + patches.shape[1]] = patches[i]
+            blobs[i] = o.tobytes()
+            check_shards("delta", i, blobs[i], hinfo=False)
+        out["launches"]["ecbackend_delta"] = launches
+        out["delta"] = wall
+        print(f"ecbackend delta: {d['delta_rmw_ops']} of {ECB_OBJS} "
+              f"overwrites on the delta lane, {d['delta_rmw_fallbacks']} "
+              f"fallbacks; parity equal to a full re-encode")
+
+        # 3. degraded reads with shards ERASED down
+        cl.acting = [(s, None if s in ERASED else osd)
+                     for s, osd in enumerate(acting)]
+        res, wall, launches, d = sub_phase(
+            "degraded reads", b, cl, counts, ECB_OBJS, ECB_THREADS, read,
+            nbytes, "dec_calls", "dec_reqs", "B1")
+        check_reads("degraded read", res)
+        out["launches"]["ecbackend_degraded"] = launches
+        out["degraded"] = wall
+        cl.acting = [(s, osd) for s, osd in enumerate(acting)]
+
+        # 4. recovery: shard LOST's store wiped, every object rebuilt
+        from ceph_tpu_torch.store import GHObject, Transaction
+        lost_host = cl.by_shard[LOST]
+        before = [cl.shard_bytes(LOST, n) for n in names]
+        txn = Transaction()
+        for n in names:
+            txn.remove(f"1.0s{LOST}", GHObject(n, LOST))
+        lost_host.store.queue_transactions([txn])
+        lost_host.store.flush()
+
+        def recover(i, cb):
+            p.recover_object(names[i], versions[i],
+                             [(LOST, acting[LOST])], cb)
+        res, wall, launches, d = sub_phase(
+            f"recovery of shard {LOST}", b, cl, counts, ECB_OBJS,
+            ECB_THREADS, recover, ECB_OBJS * shard_len, "dec_calls",
+            "dec_reqs", "B1")
+        if any(r != (0,) for r in res):
+            raise AssertionError(f"ecbackend recovery: results {set(res)}")
+        for i, n in enumerate(names):
+            if cl.shard_bytes(LOST, n) != before[i]:
+                raise AssertionError(f"ecbackend recovery: object {i} shard "
+                                     f"{LOST} rebuilt wrong")
+        out["launches"]["ecbackend_recovery"] = launches
+        out["rebuild_mb_s"] = ECB_OBJS * shard_len / wall / 1e6
+        print(f"ecbackend rebuild: {ECB_OBJS} shards of {shard_len} bytes "
+              f"in {wall:.4f} s = {out['rebuild_mb_s']:.3f} MB/s of rebuilt "
+              f"shard bytes (host clock), each byte-equal to the shard "
+              f"before")
+
+        # 5. deep scrub with syndromes on every host
+        conf.set("osd_deep_scrub_syndrome", True)
+        out["scrub"] = scrub_path(torch, np, codec, cl, counts)
+        out["launches"]["scrub"] = out["scrub"]["launches"]
+
+        # 6. packet codes: a cauchy_good k=10 m=4 pool, packetsize 2048
+        pcodec = registry.instance().factory(
+            "gpu", {"k": str(PK), "m": str(PM), "technique": "cauchy_good",
+                    "packetsize": "2048", "device": DEV})
+        psw = PK * PKT_STRIPE_UNIT
+        psinfo = ecutil.StripeInfo(PK, psw)
+        if pcodec.get_chunk_size(psw) != PKT_STRIPE_UNIT:
+            raise AssertionError("packet pool: stripe unit not aligned")
+        warm = b.prewarm(pcodec, psinfo)
+        if warm is not None:
+            warm.join()
+        pacting = pg_acting(PK, PM, PK + PM + 1, PKT_STRIPE_UNIT)
+        pcl = PGCluster(pcodec, psw, pacting, conf, b)
+        clusters.append(pcl)
+        ptwin = b.cpu_twin(pcodec, psinfo)
+        pobjs = torch.randint(0, 256, (PKT_ECB_OPS, ECB_OBJ_BYTES),
+                              dtype=torch.uint8, device=DEV,
+                              generator=gen).cpu().numpy()
+        pblobs = [o.tobytes() for o in pobjs]
+
+        def pwrite(i, cb):
+            pcl.primary.submit_transaction(
+                names[i], Mutation(writes=[(0, pblobs[i])]), (1, i + 1),
+                [LogEntry(MODIFY, names[i], (1, i + 1))], cb)
+        res, wall, launches, d = sub_phase(
+            "cauchy_good k=10 m=4 writes", b, pcl, counts, PKT_ECB_OPS,
+            PKT_ECB_THREADS, pwrite, pobjs.nbytes, "calls", "reqs", "B2")
+        if any(r != (0,) for r in res):
+            raise AssertionError(f"ecbackend packet: results {set(res)}")
+        astripes = -(-ECB_OBJ_BYTES // psw)
+        for i in range(PKT_ECB_OPS):
+            padded = pblobs[i] + bytes(astripes * psw - ECB_OBJ_BYTES)
+            want = ecutil.encode(psinfo, ptwin, padded)
+            for s in range(PK + PM):
+                if pcl.shard_bytes(s, names[i]) != bytes(want[s]):
+                    raise AssertionError(f"ecbackend packet: object {i} "
+                                         f"shard {s} != jerasure")
+        out["launches"]["ecbackend_packet"] = launches
+        print(f"ecbackend packet pool: acting {pacting}, stripe unit "
+              f"{PKT_STRIPE_UNIT}, every chunk equal to the jerasure "
+              f"plugin's host encode; frames carried {cl.frames + pcl.frames}"
+              f" sub-ops, {(cl.frame_bytes + pcl.frame_bytes) / 2**30:.3f} "
+              f"GiB of payload")
+    finally:
+        b.stop()
+        for c in clusters:
+            c.stop()
+    return out
+
+
+def scrub_path(torch, np, codec, cl, counts) -> dict:
+    """The deep scrub of the ecbackend phase: build_scrub_map(deep=True)
+    on all 12 hosts with osd_deep_scrub_syndrome on, each host's objects
+    in ec_tpu_scrub_window_bytes windows through crclinear on the codec's
+    backend (B1, one launch a row group: [160, 4096] for a data shard's
+    five bands).  The first window of every host equals the CPU route;
+    every data CRC equals crc32c; the syndrome partials XOR to zero
+    across the shards of every object, and a byte flipped in one shard of
+    one object shows in that object alone; no window falls back to the
+    host."""
+    from ceph_tpu_torch.ops import crclinear
+    from ceph_tpu_torch.ops import gf8_kernel
+    from ceph_tpu_torch.ops.torch_engine import TorchBackend
+    from ceph_tpu_torch.store import GHObject, Transaction
+    from ceph_tpu_torch.utils.crc import crc32c
+
     lin = crclinear.shared()
+    backend, cpu = codec.core.backend, TorchBackend("cpu")
     fallbacks = lin.host_fallbacks
-    zero = np.uint32(lin.zero_crc(CHUNK))
+    windows = []
+    apply = lin._apply_window
 
-    def partials(parts, scales, nz):
-        return [parts[1 + nz.index(sc)] if sc else
-                np.zeros(SCRUB_STRIPES, np.uint32) for sc in scales]
+    def recording(stack, scales, backend=None, strict=False):
+        n0 = gf8_kernel.launches
+        got = apply(stack, scales, backend=backend, strict=strict)
+        windows.append({"stack": stack, "bands": tuple(scales),
+                        "got": got, "launches": gf8_kernel.launches - n0,
+                        "backend": backend})
+        return got
 
-    counts.reset()
-    t0 = time.monotonic()
-    got = [lin._apply_window(shards[s], scrub_bands(cm, s)[2], backend)
-           for s in range(K + M)]
-    secs = time.monotonic() - t0
-    launches = counts.read()
-    want_launches = sum(len(scrub_bands(cm, s)[2]) for s in range(K + M))
-    if launches["B1"] != want_launches or lin.host_fallbacks != fallbacks:
+    n = K + M
+    lin._apply_window = recording
+    try:
+        counts.reset()
+        t0 = time.monotonic()
+        maps = []
+        for s in range(n):
+            with cl.lock:
+                maps.append(cl.by_shard[s].backend.build_scrub_map(
+                    deep=True))
+            windows[-1]["last_of"] = s
+        secs = time.monotonic() - t0
+        launches = counts.read()
+    finally:
+        del lin._apply_window
+    backs = [h.backend for h in cl.by_shard]
+    if any(be.scrub_host_fallbacks for be in backs) or \
+            lin.host_fallbacks != fallbacks or \
+            min(be.scrub_device_windows for be in backs) < 1:
         raise AssertionError(
-            f"scrub: {launches['B1']} B1 launches for {want_launches} row "
-            f"groups, {lin.host_fallbacks - fallbacks} host fallbacks "
-            f"({lin.last_error!r})")
-    syn = np.zeros((M, SCRUB_STRIPES), dtype=np.uint32)
-    for s in range(K + M):
-        scales, nz, bands = scrub_bands(cm, s)
-        plain = lin._apply_window(shards[s], bands, cpu)
-        if not np.array_equal(got[s], plain):
-            raise AssertionError(f"scrub: shard {s} partials != CPU route")
-        if [int(c) for c in got[s][0] ^ zero] != [
-                crc32c(c) for c in shards[s]]:
-            raise AssertionError(f"scrub: shard {s} data CRCs != crc32c")
-        syn ^= np.stack(partials(got[s], scales, nz))
-    if syn.any():
-        raise AssertionError("scrub: syndrome partials do not cancel on "
-                             "a clean codeword")
-    s_bad, stripe_bad = 3, 5
-    bad = shards[s_bad].copy()
-    bad[stripe_bad, 1000] ^= 0x5A
-    scales, nz, bands = scrub_bands(cm, s_bad)
-    syn ^= np.stack(partials(got[s_bad], scales, nz))
-    syn ^= np.stack(partials(lin._apply_window(bad, bands, backend),
-                             scales, nz))
-    hit = sorted(set(np.nonzero(syn)[1].tolist()))
-    if hit != [stripe_bad] or lin.host_fallbacks != fallbacks:
-        raise AssertionError(f"scrub: a flipped byte in stripe "
-                             f"{stripe_bad} shows in stripes {hit}")
-    sizes = [tuple(lin.block_bitmatrix(scrub_bands(cm, s)[2]).shape)
-             for s in range(K + M)]
-    print(f"scrub window: {K + M} shards of {SCRUB_STRIPES} x {CHUNK} B "
-          f"({SCRUB_STRIPES * CHUNK >> 20} MiB a shard), bitmatrices "
-          f"{sorted(set(sizes), reverse=True)}, B1 launches "
+            f"scrub: host fallbacks "
+            f"{[be.scrub_host_fallbacks for be in backs]} "
+            f"({[repr(be.scrub_last_error) for be in backs]}), device "
+            f"windows {[be.scrub_device_windows for be in backs]}")
+    if launches["B1"] != sum(w["launches"] for w in windows) or \
+            any(w["launches"] != len(w["bands"]) for w in windows):
+        raise AssertionError(f"scrub: B1 launches {launches['B1']}, by window"
+                             f" {[(len(w['bands']), w['launches']) for w in windows]}")
+    five = [w for w in windows if len(w["bands"]) == 5]
+    if not five or lin.block_bitmatrix(five[0]["bands"]).shape != (160, 4096):
+        raise AssertionError("scrub: no [160, 4096] window")
+    # the first window of every host against the CPU route
+    starts = [0] + [i + 1 for i, w in enumerate(windows) if "last_of" in w]
+    for s, i in enumerate(starts[:n]):
+        w = windows[i]
+        plain = lin._apply_window(w["stack"], w["bands"], cpu)
+        if not np.array_equal(w["got"], plain):
+            raise AssertionError(f"scrub: shard {s} window != CPU route")
+    oids = sorted(maps[0])
+
+    def syndromes(ms):
+        syn = {}
+        for oid in oids:
+            acc = np.zeros(M, dtype=np.uint64)
+            for smap in ms:
+                acc ^= np.asarray(smap[oid]["syndrome_partials"],
+                                  dtype=np.uint64)
+            syn[oid] = acc
+        return syn
+    for s in range(n):
+        if sorted(maps[s]) != oids:
+            raise AssertionError(f"scrub: shard {s} lists other objects")
+        for oid in oids:
+            if maps[s][oid]["data_crc"] != crc32c(cl.shard_bytes(s, oid)):
+                raise AssertionError(f"scrub: shard {s} {oid} data_crc")
+    if any(v.any() for v in syndromes(maps).values()):
+        raise AssertionError("scrub: syndrome partials do not cancel")
+    s_bad, o_bad = LOST, oids[len(oids) // 2]
+    good = cl.shard_bytes(s_bad, o_bad)
+    flip = bytes([good[1000] ^ 0x5A])
+    host = cl.by_shard[s_bad]
+    host.store.queue_transactions([Transaction().write(
+        f"1.0s{s_bad}", GHObject(o_bad, s_bad), 1000, flip)])
+    host.store.flush()
+    with cl.lock:
+        bad_map = host.backend.build_scrub_map(deep=True)
+    maps_bad = list(maps)
+    maps_bad[s_bad] = bad_map
+    hit = [oid for oid, v in syndromes(maps_bad).items() if v.any()]
+    if hit != [o_bad] or lin.host_fallbacks != fallbacks:
+        raise AssertionError(f"scrub: a flipped byte in {o_bad} shard "
+                             f"{s_bad} shows in {hit}")
+    host.store.queue_transactions([Transaction().write(
+        f"1.0s{s_bad}", GHObject(o_bad, s_bad), 1000, good[1000:1001])])
+    host.store.flush()
+    nbytes = sum(w["stack"].size for w in windows)
+    shapes = sorted({lin.block_bitmatrix(w["bands"]).shape for w in windows},
+                    reverse=True)
+    print(f"ecbackend deep scrub: {n} hosts, {len(windows)} windows "
+          f"({nbytes / 2**30:.3f} GiB), bitmatrices {shapes}, B1 launches "
           f"{launches['B1']} (one a row group) in {secs:.4f} s host to "
-          f"host; every shard equal to the CPU route, data CRCs equal "
-          f"crc32c, syndromes cancel, a flipped byte in shard {s_bad} "
-          f"stripe {stripe_bad} shows in stripe {hit}")
-    big = max(range(K + M), key=lambda s: len(scrub_bands(cm, s)[2]))
-    return {"launches": launches, "shard": shards[big],
-            "bands": scrub_bands(cm, big)[2], "backend": backend}
+          f"host = {nbytes / 2**30 / secs:.3f} GiB/s; device windows "
+          f"{sum(be.scrub_device_windows for be in backs)}, host fallbacks "
+          f"0; first window of every host equal to the CPU route, data "
+          f"CRCs equal crc32c, syndromes cancel, a flipped byte in {o_bad} "
+          f"shard {s_bad} shows in {hit}")
+    big = five[0]
+    return {"launches": launches, "shard": big["stack"],
+            "bands": big["bands"], "backend": backend}
 
 
 # phase -> the kernel its path must launch
@@ -1173,7 +1672,10 @@ PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "batcher_encode_1": "B1", "batcher_encode_2": "B1",
                 "batcher_encode_burst": "B1",
                 "batcher_decode": "B1", "batcher_delta": "B1",
-                "batcher_packet": "B2", "store": "B1", "scrub": "B1"}
+                "batcher_packet": "B2", "store": "B1",
+                "ecbackend_write": "B1", "ecbackend_delta": "B1",
+                "ecbackend_degraded": "B1", "ecbackend_recovery": "B1",
+                "scrub": "B1", "ecbackend_packet": "B2"}
 KERNELS = {
     "B1": ("gf8_bitplane_apply (B1)", "ceph_tpu_torch/csrc/gf8_bitplane.cu",
            "ceph_tpu/ops/jax_engine.py:382",
@@ -1220,9 +1722,10 @@ def main() -> int:
                                counts)
         finally:
             batcher.stop()
-        scrub = scrub_path(torch, np, registry, engine, counts)
+        ecb = ecbackend_path(torch, np, registry, ecutil, counts)
+        scrub = ecb["scrub"]
         launches = {**run["launches"], **pkt["launches"], **bat,
-                    "store": store["launches"], "scrub": scrub["launches"]}
+                    "store": store["launches"], **ecb["launches"]}
         for phase, n in launches.items():
             if n[PHASE_KERNEL[phase]] < 1:
                 raise AssertionError(

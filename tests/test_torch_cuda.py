@@ -8,8 +8,9 @@ a card and no jax it runs alone:
 Kernels B1, B2 and B3 are held against their plain PyTorch versions and
 the numpy oracle, and the `gpu` plugin's CUDA path, byte codes and packet
 codes, against the numpy oracle.  B1 also takes crclinear's bitmatrices
-of many syndrome bands (split into row groups), and BlueStore's checksum
-fold runs on it from the store's applier thread."""
+of many syndrome bands (split into row groups), BlueStore's checksum
+fold runs on it from the store's applier thread, and the ECBackend's
+write, degraded read and recovery run on it through the batcher."""
 import numpy as np
 import pytest
 import torch
@@ -458,3 +459,115 @@ def test_bluestore_checksums_on_b1_from_its_applier(card):
             assert store.read("1.0s0", GHObject(f"o{i}", 0)) == obj
     finally:
         store.umount()
+
+
+@pytest.mark.cuda
+def test_ecbackend_write_degraded_read_and_recovery_on_cuda(card):
+    """One k=8 m=4 ECBackend (4 KiB stripe unit) over an EncodeBatcher on
+    the card: a 4 MiB write (two segments through the encode lane), a
+    degraded read with shards (1, 5, 9, 11) down and the recovery of a
+    wiped shard 3, both through the decode lane; every shard equals the
+    CPU twin's encode, B1 launches in each step, and no request takes the
+    twin."""
+    import threading
+
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.osd.backend import Mutation, PGHost
+    from ceph_tpu_torch.osd.batcher import EncodeBatcher
+    from ceph_tpu_torch.osd.ecbackend import ECBackend
+    from ceph_tpu_torch.osd.pglog import MODIFY, LogEntry
+    from ceph_tpu_torch.store import GHObject, MemStore, Transaction
+
+    k, m, sw = 8, 4, 8 * 4096
+    lock = threading.RLock()
+    acting = [(s, s) for s in range(k + m)]
+    EncodeBatcher.reset_learning()
+    b = EncodeBatcher({"ec_tpu_batch_stripes": 512,
+                       "ec_tpu_queue_window_us": 2000,
+                       "ec_tpu_fallback_cpu": False,
+                       "osd_ec_prewarm": False})
+    hosts = {}
+
+    class Host(PGHost):
+        def __init__(self, s):
+            self.s, self.lock = s, lock
+            self.encode_batcher = b if s == 0 else None
+            self._store = MemStore()
+            self._store.mount()
+            self._store.mkfs()
+            self._store.queue_transactions(
+                [Transaction().create_collection(f"1.0s{s}")])
+
+        whoami = property(lambda self: self.s)
+        own_shard = property(lambda self: self.s)
+        pgid_str = property(lambda self: "1.0")
+        store = property(lambda self: self._store)
+        epoch = property(lambda self: 1)
+
+        def coll_of(self, shard):
+            return f"1.0s{shard}"
+
+        def acting_shards(self):
+            return acting
+
+        def send_shard(self, osd, msg):
+            with lock:
+                assert hosts[osd].backend.handle_message(msg)
+
+        def prepare_log_txn(self, txn, entries):
+            pass
+
+        def on_local_commit(self, fn):
+            with lock:
+                fn()
+
+    codec = registry.instance().factory("gpu", {"k": str(k), "m": str(m)})
+    sinfo = ecutil.StripeInfo(k, sw)
+    try:
+        for s in range(k + m):
+            hosts[s] = Host(s)
+            hosts[s].backend = ECBackend(hosts[s], codec, sw)
+        primary = hosts[0].backend
+        data = np.random.default_rng(12).integers(
+            0, 256, 4 << 20, dtype=np.uint8).tobytes()
+
+        def run(start):
+            done, res = threading.Event(), []
+            with lock:
+                start(lambda *r: (res.append(r), done.set()))
+            assert done.wait(120)
+            for h in hosts.values():
+                h.store.flush()
+            return res[0]
+
+        def shard(s):
+            return hosts[s].store.read(f"1.0s{s}", GHObject("obj", s))
+
+        n0 = gf8_kernel.launches
+        assert run(lambda cb: primary.submit_transaction(
+            "obj", Mutation(writes=[(0, data)]), (1, 1),
+            [LogEntry(MODIFY, "obj", (1, 1))], cb)) == (0,)
+        n1 = gf8_kernel.launches
+        want = ecutil.encode(sinfo, b.cpu_twin(codec, sinfo), data)
+        assert all(shard(s) == bytes(want[s]) for s in range(k + m))
+        acting[:] = [(s, None if s in (1, 5, 9, 11) else s)
+                     for s in range(k + m)]
+        res = run(lambda cb: primary.objects_read("obj", 0, len(data), cb))
+        assert res[0] == 0 and bytes(res[1]) == data
+        n2 = gf8_kernel.launches
+        acting[:] = [(s, s) for s in range(k + m)]
+        hosts[3].store.queue_transactions([Transaction().remove(
+            "1.0s3", GHObject("obj", 3))])
+        hosts[3].store.flush()
+        assert run(lambda cb: primary.recover_object(
+            "obj", (1, 1), [(3, 3)], cb)) == (0,)
+        assert shard(3) == bytes(want[3])
+        n3 = gf8_kernel.launches
+        assert n1 > n0 and n2 > n1 and n3 > n2
+        assert b.cpu_reqs == b.dec_cpu_reqs == b.device_errors == 0
+        assert primary.twin_routes == primary.device_errors == 0
+    finally:
+        b.stop()
+        for h in hosts.values():
+            h.store.umount()
+        EncodeBatcher.reset_learning()
