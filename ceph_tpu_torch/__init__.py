@@ -13,17 +13,26 @@ against.  Ported so far, from the codec up:
                           EncodeBatcher, coalescing writes, degraded reads
                           and overwrites into one device call per geometry;
                           the PG backends (ecbackend, replicatedbackend,
-                          backend), pglog, snaps and osdmap
+                          backend), pglog, snaps and osdmap; the daemon
+                          side: pg, the classic OSD, the op scheduler and
+                          the scrubber
   ceph_tpu_torch.store  - ObjectStore, MemStore, FileStore, BlockStore and
                           BlueStore, whose checksums run on B1 (crclinear)
-  ceph_tpu_torch.msg    - Message, the type registry, the frame codec and
-                          every message type (the socket Messenger is not
-                          ported yet)
+  ceph_tpu_torch.msg    - Message, the type registry, the frame codec,
+                          every message type and the TCP Messenger
+  ceph_tpu_torch.mon    - the monitor (maps, pools, profiles, failures),
+                          Paxos quorum and MonClient
+  ceph_tpu_torch.client - librados-style Rados, IoCtx and the objecter
+  ceph_tpu_torch.cluster - the in-process vstart: Cluster, test_config
   ceph_tpu_torch.crush  - CRUSH mapper and wrapper (placement)
   ceph_tpu_torch.compressor - the compressor registry (frames, BlueStore)
-  ceph_tpu_torch.utils  - crc32c, and what the batcher stands on: config,
-                          perf counters, flight recorder, device ledger,
-                          faults, tuner, locks, lockdep, op tracker, hops
+  ceph_tpu_torch.auth, .mgr - the keyring; the SLO and health helpers
+  ceph_tpu_torch.utils  - crc32c, and what the batcher and the daemons
+                          stand on: config, logging, perf counters, flight
+                          recorder, device ledger, faults, tuner, locks,
+                          lockdep, op tracker, hops, timer wheel, tracer,
+                          critical path, sampler, admin socket, machine
+                          factor
 
 Entry points run on CUDA unless the caller asks for the CPU.
 """

@@ -2,11 +2,12 @@
 
 - message: Message base, type registry, CRC frame codec
 - messages: the typed message catalog the daemons exchange
-
-The socket Messenger is not ported yet; in-process hosts carry frames
-through encode_frame_parts and decode_frame_body.
+- messenger: async TCP Messenger with lossless reconnect/resend,
+  dispatcher fan-out, and socket fault injection
 """
 from .message import Message, encode_frame
+from .messenger import Connection, Dispatcher, Messenger
 from . import messages
 
-__all__ = ["Message", "encode_frame", "messages"]
+__all__ = ["Message", "encode_frame", "Connection", "Dispatcher",
+           "Messenger", "messages"]

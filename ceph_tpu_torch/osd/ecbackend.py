@@ -297,6 +297,17 @@ class ECBackend(PGBackend):
     #: geometry keys whose activation prewarm already ran (the work is
     #: per-process; activation happens per PG)
     _activation_warmed: Set[tuple] = set()
+    #: activation warm threads not yet joined
+    _activation_threads: List[threading.Thread] = []
+
+    @classmethod
+    def join_activation_warms(cls, timeout: float = 60.0) -> None:
+        """Wait for the activation warms started so far.  A warm thread
+        still inside a torch call when the interpreter exits aborts the
+        process ("terminate called without an active exception"), so a
+        cluster joins them when it stops."""
+        while cls._activation_threads:
+            cls._activation_threads.pop().join(timeout)
 
     def prewarm_geometry(self) -> None:
         """Make the pool's (k, m, stripe) device executables and
@@ -346,8 +357,10 @@ class ECBackend(PGBackend):
                 except Exception:
                     pass
 
-        threading.Thread(target=work, name="ec-activate-prewarm",
-                         daemon=True).start()
+        t = threading.Thread(target=work, name="ec-activate-prewarm",
+                             daemon=True)
+        ECBackend._activation_threads.append(t)
+        t.start()
 
     # ------------------------------------------------------------------
     # write path (reference submit_transaction -> start_rmw -> check_ops)

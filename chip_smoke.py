@@ -39,7 +39,7 @@ Phases, each of which must pass or the script exits non-zero:
      its calls, host-to-host rate, launches and overlap share;
   6. drive the store (ceph_tpu_torch/store/bluestore.py): one RAM
      BlueStore with its defaults, wired to the batcher of phase 5 as an
-     OSD wires it (attach_device_batcher), takes 128 writes of 4 MiB from
+     OSD wires it (attach_device_batcher), takes 64 writes of 4 MiB from
      8 threads; each write's checksum batch (1024 blocks of 4 KiB) is one
      crclinear window on B1; every object reads back byte-equal, every
      block's CRC equals the host crc32c, every batch of more than one
@@ -50,9 +50,9 @@ Phases, each of which must pass or the script exits non-zero:
      shards placed on 12 of 13 OSDs by the port's OSDMap (an `indep`
      erasure rule), one in-process host and MemStore a shard, every
      sub-op through the port's frame codec, the primary's EncodeBatcher
-     built as in phase 5: 128 writes of 4 MiB from 8 threads (two
-     segments each, encode lane), read back; 128 overwrites of two 4 KiB
-     columns of one stripe (delta lane, no fallback); 128 degraded reads
+     built as in phase 5: 64 writes of 4 MiB from 8 threads (two
+     segments each, encode lane), read back; 64 overwrites of two 4 KiB
+     columns of one stripe (delta lane, no fallback); 64 degraded reads
      with shards (1, 5, 9, 11) down (decode lane); shard 3 wiped and
      recovered for every object (decode lane; rebuild MB/s); a deep
      scrub with syndromes on all 12 hosts through crclinear on B1
@@ -63,13 +63,32 @@ Phases, each of which must pass or the script exits non-zero:
      pool (B2).  Every shard equals the host encode of the jerasure
      plugin; any twin route, device error or counted host fallback
      fails the phase;
-  8. fail unless every phase launched the kernel of its path: B1 on the
+  8. drive the port's daemons (ceph_tpu_torch/cluster.py): the k=8 m=4
+     shapes warmed on the shared backend first, then a mon, 13 classic
+     OSDs on RAM BlueStores and a client over the loopback-TCP
+     messenger, with the JAX package's 13-OSD settings (heartbeat 2 s,
+     grace max(20 s, 12 x machine factor), down->out after 60 s, a 3 ms
+     batcher window) and a `gpu` k=8 m=4 pool of 32 PGs (4 KiB stripe
+     unit, allow_ec_overwrites): 128 writes of 4 MiB from one deep aio
+     queue, read back; 128 overwrites of 8 KiB on two data columns of
+     one stripe (all on the delta lane), read back; osd.12 killed with
+     its data and 128 degraded reads; its rebuild to clean (rebuild
+     MB/s), every object read back and every shard, read from the store
+     of the OSD its acting set names, equal to the jerasure encode; a
+     deep scrub of every PG through the monitor.  Each step prints its
+     host-to-host seconds, its B1 launches, the batchers' calls against
+     requests and the process's CPU seconds by thread family;
+     BlueStore's checksum batches on the card and on the host loop are
+     printed per OSD, and every primary of a written PG must have
+     checksummed on the card; any twin route, device error, open
+     breaker or counted host fallback fails the phase;
+  9. fail unless every phase launched the kernel of its path: B1 on the
      byte-code phases, the batcher's encode, decode and delta lanes, the
-     store and the ECBackend's writes, overwrites, degraded reads,
-     recovery and scrub, B2 on the packetsize-2048 phases, the corpus,
-     the batcher's packet lane and the ECBackend's cauchy_good pool, B3
-     on the packetsize-1000 phases;
-  9. time each kernel (median of CUDA-event-timed launches) beside its
+     store, the ECBackend's writes, overwrites, degraded reads,
+     recovery and scrub, and every step of the cluster phase, B2 on the
+     packetsize-2048 phases, the corpus, the batcher's packet lane and
+     the ECBackend's cauchy_good pool, B3 on the packetsize-1000 phases;
+ 10. time each kernel (median of CUDA-event-timed launches) beside its
      bound and its plain version at the shapes of its path, and B2 and B3
      each at the other's shape too, B1 also at the store's shape and
      at the ECBackend's own deep-scrub window; print each one's share of
@@ -130,7 +149,7 @@ BATCH_THREADS = 8
 PKT_OPS = 64               # one-stripe cauchy_good writes of 4 MiB
 
 # store phase: a RAM BlueStore with its defaults; 4 MiB objects
-STORE_OBJS = 128           # 512 MiB of 4 KiB blocks
+STORE_OBJS = 64            # 256 MiB of 4 KiB blocks
 STORE_COLL = "1.0s0"
 # ecbackend phase: one PG of a k=8 m=4 pool with the 4 KiB stripe unit
 # (osd_pool_erasure_code_stripe_unit), 4 MiB objects (RBD/RGW), acting
@@ -140,7 +159,7 @@ ECB_OSDS = 13
 ECB_PG_NUM = 256
 ECB_STRIPE_UNIT = 4096
 ECB_OBJ_BYTES = 4 << 20
-ECB_OBJS = 128             # 512 MiB of objects
+ECB_OBJS = 64              # 256 MiB of objects
 ECB_THREADS = 8
 DELTA_COL = 2              # overwrites of columns (2, 3) of one stripe
 LOST = 3                   # the shard wiped and recovered
@@ -1663,6 +1682,425 @@ def scrub_path(torch, np, codec, cl, counts) -> dict:
             "bands": big["bands"], "backend": backend}
 
 
+# cluster phase: the port's in-process cluster of 13 classic OSDs over the
+# loopback-TCP messenger, a k=8 m=4 `gpu` pool with 32 PGs and the 4 KiB
+# stripe unit, RAM BlueStores, one client; the settings of the JAX
+# package's own 13-OSD run (bench.py _cluster_run), classic OSDs
+CL_OSDS = 13
+CL_PG_NUM = 32
+CL_OBJS = 128              # 512 MiB of 4 MiB objects (RBD's object size)
+CL_OBJ_BYTES = 4 << 20
+CL_STRIPE_UNIT = 4096
+CL_LOST = 12               # the OSD killed with its data and rebuilt
+CL_WARM_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def cluster_conf(test_config, factor: float):
+    """test_config with the JAX package's 13-OSD overrides (heartbeats
+    slowed, grace scaled by the machine factor, down->out aging of 60 s,
+    32 PGs, a 3 ms batcher window), classic OSDs, the route pinned to
+    the card and the batcher prewarmed."""
+    return test_config(osd_heartbeat_interval=2.0,
+                       osd_heartbeat_grace=max(20.0, 12.0 * factor),
+                       mon_osd_down_out_interval=60.0,
+                       osd_pool_default_pg_num=CL_PG_NUM,
+                       ec_tpu_queue_window_us=3000,
+                       osd_backend="classic",
+                       ec_tpu_fallback_cpu=False,
+                       osd_ec_prewarm=True)
+
+
+def cluster_prewarm(registry, crclinear, profile: dict) -> float:
+    """Warm the k=8 m=4 shapes on the shared backend before any daemon
+    starts: the staging rings of every batch bucket, the encode, decode
+    and delta operands, and crclinear's 4 KiB-block window.  Daemon
+    threads then find them hot instead of paying CUDA set-up inside a
+    heartbeat's time."""
+    t0 = time.monotonic()
+    codec = registry.instance().factory("gpu", dict(profile))
+    codec.prewarm_geometry(CL_STRIPE_UNIT, batches=CL_WARM_BATCHES)
+    codec.prewarm_decode(CL_STRIPE_UNIT, batches=CL_WARM_BATCHES)
+    codec.prewarm_delta(CL_STRIPE_UNIT, batches=CL_WARM_BATCHES)
+    blocks = [bytes(CL_STRIPE_UNIT)] * 1024
+    crclinear.shared().crc_batch(blocks, backend=codec.core.backend)
+    return time.monotonic() - t0
+
+
+def thread_cpu() -> dict:
+    """CPU seconds each live thread has used so far, from /proc/self/task
+    (Linux): {native id: (family, seconds)}, a family being the thread's
+    name with its numbers replaced by #."""
+    import re
+    import threading
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for t in threading.enumerate():
+        try:
+            with open(f"/proc/self/task/{t.native_id}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, TypeError):
+            continue
+        out[t.native_id] = (re.sub(r"[\d.]+", "#", t.name),
+                            (int(fields[11]) + int(fields[12])) / tick)
+    return out
+
+
+def cpu_split(before: dict, after: dict, top: int = 8) -> str:
+    """The CPU seconds of the threads alive at the end of a step, summed
+    by family, largest first (threads that ended within it are not
+    counted)."""
+    fam = {}
+    for tid, (name, secs) in after.items():
+        fam[name] = fam.get(name, 0.0) + secs - before.get(tid, (name, 0.0))[1]
+    rows = sorted(fam.items(), key=lambda kv: -kv[1])[:top]
+    return ", ".join(f"{n} {v:.2f}" for n, v in rows)
+
+
+def live_osds(c) -> list:
+    return [(i, o) for i, o in sorted(c.osds.items()) if o is not None]
+
+
+def cluster_lanes(c) -> dict:
+    """Each live OSD's batcher lane counters, keyed by the batcher."""
+    out = {}
+    for _, o in live_osds(c):
+        b = o.encode_batcher
+        out[id(b)] = {"calls": b.calls, "reqs": b.reqs_total,
+                      "dec_calls": b.dec_calls, "dec_reqs": b.dec_reqs,
+                      "delta_calls": b.delta_calls,
+                      "delta_reqs": b.delta_reqs}
+    return out
+
+
+def lane_delta(before: dict, after: dict) -> dict:
+    tot = {}
+    for key, row in after.items():
+        base = before.get(key, {})
+        for name, v in row.items():
+            tot[name] = tot.get(name, 0) + v - base.get(name, 0)
+    return tot
+
+
+def ec_backends(c) -> list:
+    return [pg.backend for _, o in live_osds(c) for pg in list(o.pgs.values())
+            if hasattr(pg.backend, "scrub_host_fallbacks")]
+
+
+def cluster_faults(c, crclinear, EncodeBatcher) -> dict:
+    """Every counted host route and device fault of the live daemons."""
+    osds = [o for _, o in live_osds(c)]
+    bes = ec_backends(c)
+    return {
+        "twin_routes": sum(o.encode_batcher.cpu_reqs
+                           + o.encode_batcher.dec_cpu_reqs
+                           + o.encode_batcher.delta_cpu_reqs for o in osds)
+        + sum(be.twin_routes for be in bes),
+        "device_errors": sum(o.encode_batcher.device_errors for o in osds)
+        + sum(be.device_errors for be in bes),
+        "breaker_opens": EncodeBatcher._breaker_opens,
+        "csum_device_errors": sum(getattr(o.store, "csum_device_errors", 0)
+                                  for o in osds),
+        "crclinear_host_fallbacks": crclinear.shared().host_fallbacks,
+        "scrub_host_fallbacks": sum(be.scrub_host_fallbacks for be in bes),
+        "delta_rmw_fallbacks": sum(be.delta_rmw_fallbacks for be in bes)}
+
+
+def csum_report(c) -> dict:
+    """BlueStore checksum batches per live OSD: (on the card, host loop)."""
+    return {i: (o.store.csum_device_batches,
+                o.store.csum_batches - o.store.csum_device_batches)
+            for i, o in live_osds(c)}
+
+
+def wait_all(comps, what: str, timeout: float) -> list:
+    """Wait for every completion; fail on any result but 0."""
+    bad = []
+    for i, cp in enumerate(comps):
+        if cp.wait(timeout) != 0:
+            bad.append((i, cp.result))
+    if bad:
+        raise AssertionError(f"cluster {what}: {len(bad)} ops failed, first "
+                             f"{bad[:4]}")
+    return comps
+
+
+def read_all(io, names, blobs, what: str, timeout: float) -> float:
+    """Read every object back through a deep aio queue; each must be
+    byte-equal to ``blobs``.  Returns the host-to-host seconds."""
+    t0 = time.monotonic()
+    comps = wait_all([io.aio_read(n, len(b)) for n, b in zip(names, blobs)],
+                     what, timeout)
+    wall = time.monotonic() - t0
+    for i, cp in enumerate(comps):
+        if bytes(cp.reply.out_data[0]) != blobs[i]:
+            raise AssertionError(f"cluster {what}: object {i} differs")
+    return wall
+
+
+def cluster_path(torch, np, registry, ecutil, counts) -> dict:
+    """Drive the port's Cluster: a mon, CL_OSDS classic OSDs on RAM
+    BlueStores and a client, over the loopback-TCP messenger, with a
+    k=8 m=4 `gpu` pool of CL_PG_NUM PGs.  Steps: writes of every object
+    (then read back), two-column overwrites (the delta lane; then read
+    back), degraded reads with osd.CL_LOST lost, its rebuild to clean
+    (then every read and every shard, from the store of the OSD its
+    acting set names, equal to the jerasure encode), and a deep scrub of
+    every PG.  Each step runs with the launch counts zeroed just before
+    it and must launch B1; any twin route, device error, open breaker or
+    counted host fallback fails the phase.  Returns the launches by
+    step."""
+    from ceph_tpu_torch.cluster import Cluster, test_config
+    from ceph_tpu_torch.ops import crclinear
+    from ceph_tpu_torch.osd.batcher import EncodeBatcher
+    from ceph_tpu_torch.osd.ecbackend import ECBackend
+    from ceph_tpu_torch.osd.osdmap import PGid
+    from ceph_tpu_torch.store import GHObject
+    from ceph_tpu_torch.utils.machine import machine_factor
+
+    print(f"cluster phase on {card()} (nvidia-smi name, power limit)")
+    profile = {"k": str(K), "m": str(M), "technique": "reed_sol_van"}
+    secs = cluster_prewarm(registry, crclinear, profile)
+    print(f"cluster prewarm of the k={K} m={M} shapes outside the daemons: "
+          f"{secs:.4f} s")
+    EncodeBatcher.reset_learning()
+    EncodeBatcher.reset_breaker()
+    factor = machine_factor()
+    conf = cluster_conf(test_config, factor)
+    sw = K * CL_STRIPE_UNIT
+    sinfo = ecutil.StripeInfo(K, sw)
+    n_objs, obj_bytes = CL_OBJS, CL_OBJ_BYTES
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    objs = torch.randint(0, 256, (n_objs, obj_bytes), dtype=torch.uint8,
+                         device=DEV, generator=gen).cpu().numpy()
+    names = [f"rbd_data.cl.{i:016x}" for i in range(n_objs)]
+    blobs = [o.tobytes() for o in objs]
+    nbytes = objs.nbytes
+    op_timeout = 600.0
+    out = {}
+    t0 = time.monotonic()
+    c = Cluster(n_osds=CL_OSDS, conf=conf, store_kind="bluestore")
+    try:
+        c.start()
+        for i in range(CL_OSDS):
+            c.wait_for_osd_up(i, 60)
+        c.create_ec_profile("k8m4", plugin="gpu", **profile)
+        pool_id = c.create_pool("ecpool", "erasure",
+                                erasure_code_profile="k8m4",
+                                pg_num=CL_PG_NUM)
+        ret, rs, _ = c.mon_command({"prefix": "osd pool set",
+                                    "pool": "ecpool",
+                                    "var": "allow_ec_overwrites",
+                                    "val": "true"})
+        if ret != 0:
+            raise AssertionError(f"allow_ec_overwrites: {ret} {rs}")
+        rados = c.rados(timeout=60 * factor)
+        rados.op_timeout = op_timeout
+        rados.wait_for_epoch(c.mon.osdmap.epoch, 30)
+        io = rados.open_ioctx("ecpool")
+        c.wait_for_clean(120)
+        # the PGs' activation warms, then every batcher's own warm
+        ECBackend.join_activation_warms()
+        for _, o in live_osds(c):
+            for t in list(o.encode_batcher._warm_threads):
+                t.join()
+        print(f"cluster: mon + {CL_OSDS} classic OSDs on RAM BlueStores, "
+              f"pool {pool_id} k={K} m={M} plugin=gpu with {CL_PG_NUM} PGs,"
+              f" stripe unit {CL_STRIPE_UNIT}, allow_ec_overwrites; up and "
+              f"clean in {time.monotonic() - t0:.4f} s (machine factor "
+              f"{factor:.3f}, heartbeat grace "
+              f"{conf['osd_heartbeat_grace']:.1f} s)")
+
+        def step(key, name, fn, nb):
+            """Run one step with the launch counts zeroed just before it;
+            ``fn`` returns the seconds of the step's own timed part and
+            the rest of its line.  Print the line; fail on any counted
+            fault or a step without a B1 launch."""
+            lanes0 = cluster_lanes(c)
+            cpu0, proc0 = thread_cpu(), os.times()
+            counts.reset()
+            ts = time.monotonic()
+            wall, extra = fn()
+            launches = counts.read()
+            cpu1, proc1 = thread_cpu(), os.times()
+            span = time.monotonic() - ts
+            busy = (proc1.user + proc1.system) - (proc0.user + proc0.system)
+            d = lane_delta(lanes0, cluster_lanes(c))
+            faults = cluster_faults(c, crclinear, EncodeBatcher)
+            rate = (f"{nb / 2**30:.3f} GiB in {wall:.4f} s host to host = "
+                    f"{nb / 2**30 / wall:.3f} GiB/s" if nb else
+                    f"{wall:.4f} s host to host")
+            print(f"cluster {name}: {rate}; launches "
+                  f"B1 {launches['B1']} B2 {launches['B2']} B3 "
+                  f"{launches['B3']}; batcher calls/requests summed over "
+                  f"the OSDs: encode {d['calls']}/{d['reqs']}, decode "
+                  f"{d['dec_calls']}/{d['dec_reqs']}, delta "
+                  f"{d['delta_calls']}/{d['delta_reqs']}{extra}")
+            print(f"cluster {name} CPU: the process used {busy:.2f} s in "
+                  f"the step's {span:.4f} s ({busy / span:.2f} cores); by "
+                  f"thread family, s: {cpu_split(cpu0, cpu1)}")
+            if any(faults.values()):
+                raise AssertionError(f"cluster {name}: {faults}")
+            if launches["B1"] < 1:
+                raise AssertionError(f"cluster {name}: B1 did not launch")
+            out[key] = launches
+            return wall
+
+        # 1. writes: one deep aio queue from the client, then read back
+        def writes():
+            ts = time.monotonic()
+            wait_all([io.aio_write_full(n, b) for n, b in zip(names, blobs)],
+                     "writes", op_timeout)
+            wall = time.monotonic() - ts
+            counts_w = counts.read()["B1"]
+            rw = read_all(io, names, blobs, "read back", op_timeout)
+            return wall, (f"; then read back {len(names)} objects in "
+                          f"{rw:.4f} s ({nbytes / 2**30 / rw:.3f} GiB/s, B1 "
+                          f"launches {counts.read()['B1'] - counts_w}), every"
+                          f" byte as written")
+        step("cluster_write", "writes", writes, nbytes)
+        osdmap = c.mon.osdmap
+        pgs = {names[i]: osdmap.object_locator_to_pg(names[i], pool_id)
+               for i in range(n_objs)}
+        primaries = {osdmap.pg_to_up_acting_osds(pg)[3]
+                     for pg in pgs.values()}
+
+        # 2. overwrites: 8 KiB on two data columns of one stripe each,
+        #    the delta lane; then read back
+        rng = np.random.default_rng(SEED + 10)
+        patches = rng.integers(0, 256, (n_objs, 2 * CL_STRIPE_UNIT),
+                               dtype=np.uint8)
+        stripes = obj_bytes // sw
+        offs = [(i % stripes) * sw + DELTA_COL * CL_STRIPE_UNIT
+                for i in range(n_objs)]
+        delta0 = sum(be.delta_rmw_ops for be in ec_backends(c))
+
+        def overwrites():
+            ts = time.monotonic()
+            wait_all([io.aio_write(names[i], patches[i].tobytes(), offs[i])
+                      for i in range(n_objs)], "overwrites", op_timeout)
+            wall = time.monotonic() - ts
+            ops = sum(be.delta_rmw_ops for be in ec_backends(c)) - delta0
+            if ops != n_objs:
+                raise AssertionError(f"cluster overwrites: {ops} of "
+                                     f"{n_objs} on the delta lane")
+            for i in range(n_objs):
+                objs[i][offs[i]:offs[i] + patches.shape[1]] = patches[i]
+                blobs[i] = objs[i].tobytes()
+            counts_w = counts.read()["B1"]
+            rw = read_all(io, names, blobs, "read back after overwrites",
+                          op_timeout)
+            return wall, (f"; {ops} of {n_objs} on the delta lane; then "
+                          f"read back in {rw:.4f} s (B1 launches "
+                          f"{counts.read()['B1'] - counts_w}), every byte as"
+                          f" written")
+        step("cluster_overwrite", "overwrites", overwrites, patches.nbytes)
+        cs = csum_report(c)
+        print("cluster BlueStore checksum batches by OSD (card, host loop): "
+              + ", ".join(f"osd.{i} {d}/{h}" for i, (d, h) in cs.items())
+              + f"; primaries of written PGs: {sorted(primaries)}")
+        cold = [i for i in primaries if cs.get(i, (0, 0))[0] == 0]
+        if cold:
+            raise AssertionError(f"cluster: primaries {cold} never "
+                                 f"checksummed on the card")
+
+        # 3. degraded reads: osd.CL_LOST killed with its data
+        ts = time.monotonic()
+        c.kill_osd(CL_LOST, lose_data=True)
+        c.wait_for_osd_down(CL_LOST, 120)
+        down_s = time.monotonic() - ts
+
+        def degraded():
+            rw = read_all(io, names, blobs, "degraded reads", op_timeout)
+            return rw, (f"; osd.{CL_LOST} killed with its data, marked down"
+                        f" in {down_s:.4f} s before; every byte as written")
+        step("cluster_degraded", "degraded reads", degraded, nbytes)
+
+        # 4. rebuild: revive osd.CL_LOST empty, wait for clean
+        mine = set()             # (object, shard) on osd.CL_LOST
+
+        def rebuild():
+            ts = time.monotonic()
+            c.revive_osd(CL_LOST)
+            c.wait_for_osd_up(CL_LOST, 120)
+            c.wait_for_clean(900)
+            wall = time.monotonic() - ts
+            store, held = c.stores[CL_LOST], 0
+            for coll in store.list_collections():
+                for obj in store.collection_list(coll):
+                    if obj.oid in pgs:
+                        held += store.stat(coll, obj).size
+                        mine.add((obj.oid, obj.shard))
+            return wall, (f"; osd.{CL_LOST} holds {len(mine)} shards, "
+                          f"{held} bytes, after clean: {held / wall / 1e6:.3f}"
+                          f" MB/s of rebuilt shard bytes from revive to "
+                          f"clean")
+        step("cluster_rebuild", "rebuild", rebuild, 0)
+        if not mine:
+            raise AssertionError(f"cluster rebuild: osd.{CL_LOST} holds "
+                                 f"no shard")
+        rw = read_all(io, names, blobs, "read after rebuild", op_timeout)
+        jer = registry.instance().factory("jerasure", {"k": str(K),
+                                                       "m": str(M)})
+        osdmap = c.mon.osdmap
+        checked = 0
+        for i, n in enumerate(names):
+            _, _, acting, _ = osdmap.pg_to_up_acting_osds(pgs[n])
+            want = ecutil.encode(sinfo, jer, blobs[i])
+            for s, osd_id in enumerate(acting):
+                coll = f"{pgs[n]}s{s}"
+                got = bytes(c.stores[osd_id].read(coll, GHObject(n, s)))
+                if got != bytes(want[s]):
+                    raise AssertionError(f"cluster rebuild: {n} shard {s} "
+                                         f"on osd.{osd_id} != jerasure")
+                checked += 1
+            if CL_LOST in acting and \
+                    (n, acting.index(CL_LOST)) not in mine:
+                raise AssertionError(f"cluster rebuild: {n} missing on "
+                                     f"osd.{CL_LOST}")
+        print(f"cluster after rebuild: every object read back in "
+              f"{rw:.4f} s; {checked} shards read from the OSD each acting "
+              f"set names, each equal to the jerasure encode")
+
+        # 5. deep scrub of every PG through the monitor
+        def scrub():
+            ts, t_wall = time.monotonic(), time.time()
+            pgids = [str(PGid(pool_id, s)) for s in range(CL_PG_NUM)]
+            for pg in pgids:
+                ret, rs, _ = c.mon_command({"prefix": "pg deep-scrub",
+                                            "pgid": pg})
+                if ret != 0:
+                    raise AssertionError(f"pg deep-scrub {pg}: {ret} {rs}")
+            deadline = time.monotonic() + 600
+            while True:
+                ret, _, dump = c.mon_command({"prefix": "pg dump"})
+                stats = dump.get("pg_stats", {}) if ret == 0 else {}
+                done = [p for p in pgids if stats.get(p, {}).get(
+                    "last_deep_scrub", 0) >= t_wall]
+                if len(done) == len(pgids):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"deep scrub: {len(done)} of "
+                                         f"{len(pgids)} PGs done")
+                time.sleep(0.2)
+            bad = {p: (stats[p].get("num_scrub_errors"),
+                       stats[p].get("inconsistent"))
+                   for p in pgids if stats[p].get("num_scrub_errors")
+                   or stats[p].get("inconsistent")}
+            if bad:
+                raise AssertionError(f"deep scrub inconsistencies: {bad}")
+            return time.monotonic() - ts, (f"; {len(pgids)} PGs "
+                                           f"deep-scrubbed, no "
+                                           f"inconsistency")
+        step("cluster_scrub", "deep scrub", scrub, nbytes * (K + M) // K)
+        cs = csum_report(c)
+        print("cluster BlueStore checksum batches by OSD at the end (card, "
+              "host loop): " + ", ".join(f"osd.{i} {d}/{h}"
+                                         for i, (d, h) in cs.items()))
+    finally:
+        c.stop()
+    return out
+
+
 # phase -> the kernel its path must launch
 PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "ecutil": "B1", "pkt_encode": "B2",
@@ -1675,7 +2113,10 @@ PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "batcher_packet": "B2", "store": "B1",
                 "ecbackend_write": "B1", "ecbackend_delta": "B1",
                 "ecbackend_degraded": "B1", "ecbackend_recovery": "B1",
-                "scrub": "B1", "ecbackend_packet": "B2"}
+                "scrub": "B1", "ecbackend_packet": "B2",
+                "cluster_write": "B1", "cluster_overwrite": "B1",
+                "cluster_degraded": "B1", "cluster_rebuild": "B1",
+                "cluster_scrub": "B1"}
 KERNELS = {
     "B1": ("gf8_bitplane_apply (B1)", "ceph_tpu_torch/csrc/gf8_bitplane.cu",
            "ceph_tpu/ops/jax_engine.py:382",
@@ -1709,23 +2150,35 @@ def main() -> int:
     mods = {"B1": gf8_kernel, "B2": packet_kernel, "B3": packet_xor_kernel}
     counts = Launches(mods)
 
+    t_start = time.monotonic()
+
+    def elapsed(what):
+        print(f"elapsed after {what}: {time.monotonic() - t_start:.1f} s")
+
     try:
         secs = build_all(list(mods.values()))
         print(f"build: {secs:.3f} s")
         check_b1(torch, gf8_kernel, carry, matrix, engine)
         check_packet(torch, mods, carry, registry, torch_engine)
+        elapsed("the build and the kernel checks")
         run = main_path(torch, np, registry, ecutil, engine, counts)
         pkt = packet_path(torch, np, registry, ecutil, engine, counts)
+        elapsed("the codec paths")
         bat, batcher = batcher_path(torch, np, registry, ecutil, counts)
+        elapsed("the batcher phase")
         try:
             store = store_path(torch, np, lambda: batcher._last_backend,
                                counts)
         finally:
             batcher.stop()
+        elapsed("the store phase")
         ecb = ecbackend_path(torch, np, registry, ecutil, counts)
         scrub = ecb["scrub"]
+        elapsed("the ecbackend phase")
+        clu = cluster_path(torch, np, registry, ecutil, counts)
+        elapsed("the cluster phase")
         launches = {**run["launches"], **pkt["launches"], **bat,
-                    "store": store["launches"], **ecb["launches"]}
+                    "store": store["launches"], **ecb["launches"], **clu}
         for phase, n in launches.items():
             if n[PHASE_KERNEL[phase]] < 1:
                 raise AssertionError(

@@ -10,7 +10,8 @@ the numpy oracle, and the `gpu` plugin's CUDA path, byte codes and packet
 codes, against the numpy oracle.  B1 also takes crclinear's bitmatrices
 of many syndrome bands (split into row groups), BlueStore's checksum
 fold runs on it from the store's applier thread, and the ECBackend's
-write, degraded read and recovery run on it through the batcher."""
+write, degraded read and recovery run on it through the batcher, in
+one PG and in the port's 13-OSD cluster."""
 import numpy as np
 import pytest
 import torch
@@ -571,3 +572,78 @@ def test_ecbackend_write_degraded_read_and_recovery_on_cuda(card):
         for h in hosts.values():
             h.store.umount()
         EncodeBatcher.reset_learning()
+
+
+@pytest.mark.cuda
+def test_cluster_k8m4_write_degraded_read_and_rebuild_on_cuda(card):
+    """The port's Cluster on the card: a mon, 13 classic OSDs on RAM
+    BlueStores and a client over the loopback messenger, a `gpu` k=8 m=4
+    pool of 4 PGs (no device key: CUDA).  Writes, a degraded read with
+    osd.0 lost, its rebuild to clean; every read byte-exact, every shard
+    on the OSD its acting set names equal to the jerasure encode, B1
+    launched in each step, no twin route or device error."""
+    from ceph_tpu_torch.cluster import Cluster, test_config
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.osd.batcher import EncodeBatcher
+    from ceph_tpu_torch.store import GHObject
+
+    k, m = 8, 4
+    codec = registry.instance().factory("gpu", {"k": str(k), "m": str(m)})
+    codec.prewarm_geometry(4096, batches=(1, 2, 4, 8, 16, 32, 64, 128))
+    EncodeBatcher.reset_learning()
+    conf = test_config(osd_backend="classic", osd_heartbeat_interval=0.5,
+                       osd_heartbeat_grace=10.0,
+                       mon_osd_down_out_interval=60.0,
+                       osd_pool_default_pg_num=4,
+                       ec_tpu_fallback_cpu=False)
+    rng = np.random.default_rng(13)
+    payloads = {f"c{i}": rng.integers(0, 256, 100_000 + 4096 * i,
+                                      dtype=np.uint8).tobytes()
+                for i in range(6)}
+
+    def faults(c):
+        osds = [o for o in c.osds.values() if o is not None]
+        bes = [pg.backend for o in osds for pg in o.pgs.values()
+               if hasattr(pg.backend, "twin_routes")]
+        return (sum(o.encode_batcher.cpu_reqs + o.encode_batcher.dec_cpu_reqs
+                    + o.encode_batcher.device_errors for o in osds)
+                + sum(be.twin_routes + be.device_errors for be in bes))
+
+    with Cluster(n_osds=13, conf=conf, store_kind="bluestore") as c:
+        for i in range(13):
+            c.wait_for_osd_up(i, 60)
+        c.create_ec_profile("cu", plugin="gpu", k=str(k), m=str(m))
+        c.create_pool("cup", "erasure", erasure_code_profile="cu")
+        client = c.rados(timeout=30)
+        client.op_timeout = 120.0
+        io = client.open_ioctx("cup")
+        n0 = gf8_kernel.launches
+        for name, data in payloads.items():
+            io.write_full(name, data)
+        n1 = gf8_kernel.launches
+        assert all(io.read(n) == d for n, d in payloads.items())
+        c.wait_for_clean(60)
+        c.kill_osd(0, lose_data=True)
+        c.wait_for_osd_down(0, 60)
+        n2 = gf8_kernel.launches
+        assert all(io.read(n) == d for n, d in payloads.items())
+        n3 = gf8_kernel.launches
+        c.revive_osd(0)
+        c.wait_for_osd_up(0, 60)
+        c.wait_for_clean(180)
+        n4 = gf8_kernel.launches
+        assert all(io.read(n) == d for n, d in payloads.items())
+        assert n1 > n0 and n3 > n2 and n4 > n3
+        assert faults(c) == 0
+        jer = registry.instance().factory("jerasure",
+                                          {"k": str(k), "m": str(m)})
+        sinfo = ecutil.StripeInfo(k, k * 4096)
+        osdmap = c.mon.osdmap
+        for name, data in payloads.items():
+            pgid = osdmap.object_locator_to_pg(name, io.pool_id)
+            _, _, acting, _ = osdmap.pg_to_up_acting_osds(pgid)
+            padded = data + bytes(-len(data) % sinfo.stripe_width)
+            want = ecutil.encode(sinfo, jer, padded)
+            for s, osd_id in enumerate(acting):
+                got = c.stores[osd_id].read(f"{pgid}s{s}", GHObject(name, s))
+                assert bytes(got) == bytes(want[s]), (name, s, osd_id)
