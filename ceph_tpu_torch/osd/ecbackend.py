@@ -1606,7 +1606,8 @@ class ECBackend(PGBackend):
                 if shard >= 0 and shard not in avail:
                     avail[shard] = osd
         try:
-            need = self.ec_impl.minimum_to_decode(want, set(avail))
+            need = ecutil.minimum_to_decode(self.ec_impl, want,
+                                            set(avail))
         except IOError:
             return None
         return {shard: avail[shard] for shard in need}
@@ -1724,8 +1725,8 @@ class ECBackend(PGBackend):
                          and (s in rop.received
                               or s not in rop.tried)}
                 try:
-                    need = self.ec_impl.minimum_to_decode(
-                        set(range(self.k)), set(reuse))
+                    need = ecutil.minimum_to_decode(
+                        self.ec_impl, set(range(self.k)), set(reuse))
                     retry = {s: reuse[s] for s in need}
                 except IOError:
                     retry = None
@@ -1946,22 +1947,43 @@ class ECBackend(PGBackend):
         if len(missing_shards) != 1:
             return False
         sub_no = getattr(impl, "get_sub_chunk_count", lambda: 1)()
-        if sub_no <= 1 or shard_len % sub_no:
+        cs = self.sinfo.chunk_size
+        if sub_no <= 1 or cs % sub_no or shard_len % cs:
             return False
         avail_map = {s: o for s, o in self.host.acting_shards()
                      if o is not None and s not in missing_shards}
-        want = set(missing_shards)
+        pos = ecutil.chunk_positions(impl)
+        shard_of = {p: i for i, p in enumerate(pos)}
+        want = {pos[s] for s in missing_shards}
+        avail = {pos[s] for s in avail_map}
         try:
-            if not impl.is_repair(want, set(avail_map)):
+            if not impl.is_repair(want, avail):
                 return False
-            minimum = impl.minimum_to_repair(want, set(avail_map))
+            minimum = impl.minimum_to_repair(want, avail)
         except Exception:
             return False
-        sc = shard_len // sub_no
-        ranges = {c: [(off * sc, cnt * sc) for off, cnt in runs]
+        # the shard is a run of stripes, each chunk its own sub_no
+        # sub-chunks: every stripe gives its repair sub-chunks, and
+        # each stripe's chunk is repaired on its own
+        sc = cs // sub_no
+        nstripes = shard_len // cs
+        ranges = {shard_of[c]: [(st * cs + off * sc, cnt * sc)
+                                for st in range(nstripes)
+                                for off, cnt in runs]
                   for c, runs in minimum.items()}
-        shards = {c: avail_map[c] for c in minimum}
+        shards = {c: avail_map[c] for c in ranges}
+        block = {c: sum(ln for _, ln in r) // nstripes
+                 for c, r in ranges.items()}
+        lost = next(iter(missing_shards))
         oid = rec.oid
+
+        def repair(received: Dict[int, bytes]) -> Dict[int, bytes]:
+            parts: List[bytes] = []
+            for st in range(nstripes):
+                helpers = {pos[c]: buf[st * block[c]:(st + 1) * block[c]]
+                           for c, buf in received.items()}
+                parts.append(impl.decode(want, helpers, cs)[pos[lost]])
+            return {lost: b"".join(parts)}  # copycheck: ok - one chunk a stripe
 
         def reads_done(received: Dict[int, bytes],
                        errors: Dict[int, int]) -> None:
@@ -1970,7 +1992,7 @@ class ECBackend(PGBackend):
             dec = None
             if not errors and len(received) == len(shards):
                 try:
-                    dec = impl.decode(want, received, shard_len)
+                    dec = repair(received)
                 except Exception:
                     dec = None
             if dec is None:

@@ -107,6 +107,30 @@ class StripeInfo:
 # batched stripe encode / decode
 # ---------------------------------------------------------------------------
 
+def chunk_positions(ec_impl) -> List[int]:
+    """The codec's chunk position of each shard.
+
+    The backend numbers shards in code order: shard i < k holds data
+    column i and shard k + j parity j, as encode_batch and decode_batch
+    lay them out.  A codec with a chunk mapping (LRC's kml form maps
+    k=4 m=2 l=3 to ``DD__DD__``) names chunks by position in its
+    per-chunk API (encode, decode, minimum_to_decode), so calls to that
+    API translate shard ids through this list; without a mapping it is
+    the identity."""
+    return [ec_impl.chunk_index(i) for i in range(ec_impl.get_chunk_count())]
+
+
+def minimum_to_decode(ec_impl, want: Set[int], avail: Set[int]
+                      ) -> Dict[int, List[Tuple[int, int]]]:
+    """The codec's minimum_to_decode over shard ids: {shard: sub-chunk
+    runs}.  Raises IOError when ``avail`` cannot give ``want``."""
+    pos = chunk_positions(ec_impl)
+    shard_of = {p: i for i, p in enumerate(pos)}
+    need = ec_impl.minimum_to_decode({pos[i] for i in want},
+                                     {pos[i] for i in avail})
+    return {shard_of[p]: runs for p, runs in need.items()}
+
+
 def encode(sinfo: StripeInfo, ec_impl, data: bytes,
            want: Optional[Set[int]] = None) -> Dict[int, bytes]:
     """Encode a stripe-aligned extent into per-shard chunk buffers.
@@ -142,12 +166,13 @@ def encode(sinfo: StripeInfo, ec_impl, data: bytes,
         return out
 
     # CPU fallback: the reference's sequential per-stripe loop
+    pos = chunk_positions(ec_impl)
     chunks: Dict[int, List[bytes]] = {i: [] for i in want}
     for s in range(nstripes):
         encoded = ec_impl.encode(set(range(k + m)),
                                  arr[s].tobytes())
         for i in want:
-            chunks[i].append(encoded[i])
+            chunks[i].append(encoded[pos[i]])
     return {i: b"".join(chunks[i]) for i in want}
 
 
@@ -188,13 +213,15 @@ def decode(sinfo: StripeInfo, ec_impl,
         return out
 
     # CPU fallback: per-stripe decode
+    pos = chunk_positions(ec_impl)
     parts: Dict[int, List[bytes]] = {i: [] for i in want}
     for s in range(nstripes):
         lo, hi = s * sinfo.chunk_size, (s + 1) * sinfo.chunk_size
-        stripe_have = {i: v[lo:hi] for i, v in have.items()}
-        dec = ec_impl.decode(set(want), stripe_have, sinfo.chunk_size)
+        stripe_have = {pos[i]: v[lo:hi] for i, v in have.items()}
+        dec = ec_impl.decode({pos[i] for i in want}, stripe_have,
+                             sinfo.chunk_size)
         for i in want:
-            parts[i].append(dec[i])
+            parts[i].append(dec[pos[i]])
     return {i: b"".join(parts[i]) for i in want}
 
 

@@ -75,7 +75,9 @@ def _opts() -> List[Option]:
         # -- erasure code (reference options.cc:564,2659,2665) -----------
         Option("erasure_code_dir", str, "",
                description="plugin search path override"),
-        Option("osd_erasure_code_plugins", str, "jerasure isa lrc shec tpu",
+        # the port's device plugin takes the place of the JAX package's
+        # tpu: each name here must be a plugin of this package
+        Option("osd_erasure_code_plugins", str, "jerasure isa lrc shec gpu",
                description="plugins to preload at daemon start"),
         Option("osd_pool_default_erasure_code_profile", str,
                "plugin=jerasure technique=reed_sol_van k=2 m=1",

@@ -24,6 +24,17 @@ Phases, each of which must pass or the script exits non-zero:
      trip of a 64 MiB object; then packetsize 1000 (chunks of 416,000
      bytes): encode and decode; then the committed jerasure cauchy_good
      and liberation corpus vectors;
+  4b. drive the other plugins through the registry: LRC k=4 m=2 l=3 over
+     `gpu` (BASELINE config 4) at the JAX package's bench_lrc shape, two
+     batches of 96 objects of 1 MiB on the card, encode_batch_device
+     byte-equal to the inner=jerasure host walk, its GiB/s at the codec
+     boundary (CUDA events) against that walk's, one B1 launch a layer,
+     and a loss in a local group and a double loss that needs the global
+     layer decoded; CLAY k=4 m=2 d=5 with scalar_mds=gpu on 32 objects
+     of 4 MiB: encode, every loss of one and two chunks of one object,
+     and the repair of each lost chunk from its helpers' repair
+     sub-chunks, all byte-equal to scalar_mds=jerasure; the corpus
+     vectors of lrc and clay on the card, of shec and isa on the host;
   5. drive one OSD's EncodeBatcher (ceph_tpu_torch/osd/batcher.py),
      built from default_config() with ec_tpu_batch_stripes=512,
      ec_tpu_queue_window_us=2000, ec_tpu_fallback_cpu=False and
@@ -60,8 +71,14 @@ Phases, each of which must pass or the script exits non-zero:
      the first window of every host equal to the CPU route, data CRCs
      equal crc32c, syndromes cancel and show a flipped byte in its
      object alone); and 16 writes of 4 MiB to a cauchy_good k=10 m=4
-     pool (B2).  Every shard equals the host encode of the jerasure
-     plugin; any twin route, device error or counted host fallback
+     pool (B2); then an LRC k=4 m=2 l=3 PG (inner=gpu, 8 shards, 4 KiB
+     stripe unit) and a CLAY k=4 m=2 PG (scalar_mds=gpu, 6 shards, 1 MiB
+     stripe unit): 32 writes of 4 MiB each, read back, degraded reads
+     with shard 1 down, one shard recovered for every object (LRC from
+     the 3 others of its local group, CLAY by sub-chunk repair reading
+     under 0.8 of whole chunks), a deep scrub.  Every shard equals the
+     host encode of the jerasure plugin (or of the same LRC or CLAY code
+     over it); any twin route, device error or counted host fallback
      fails the phase;
   8. drive the port's daemons (ceph_tpu_torch/cluster.py): the k=8 m=4
      shapes warmed on the shared backend first, then a mon, 13 classic
@@ -83,18 +100,21 @@ Phases, each of which must pass or the script exits non-zero:
      checksummed on the card; any twin route, device error, open
      breaker or counted host fallback fails the phase;
   9. fail unless every phase launched the kernel of its path: B1 on the
-     byte-code phases, the batcher's encode, decode and delta lanes, the
-     store, the ECBackend's writes, overwrites, degraded reads,
-     recovery and scrub, and every step of the cluster phase, B2 on the
+     byte-code phases, every step of the plugins phase on the card, the
+     batcher's encode, decode and delta lanes, the store, the
+     ECBackend's writes, overwrites, degraded reads, recovery and scrub,
+     the LRC and CLAY PGs' writes, degraded reads and recoveries, and
+     every step of the cluster phase, B2 on the
      packetsize-2048 phases, the corpus, the batcher's packet lane and
      the ECBackend's cauchy_good pool, B3 on the packetsize-1000 phases;
  10. time each kernel (median of CUDA-event-timed launches) beside its
      bound and its plain version at the shapes of its path, and B2 and B3
      each at the other's shape too, B1 also at the store's shape and
-     at the ECBackend's own deep-scrub window; print each one's share of
-     its bound, the registers, local and shared memory each kernel's
-     block uses, and the static SASS opcode counts of B1's main-path
-     kernel.
+     at the ECBackend's own deep-scrub window, at LRC's global and local
+     layers and at CLAY's plane code and pairwise transform; print each
+     one's share of its bound, the registers, local and shared memory
+     each kernel's block uses, and the static SASS opcode counts of B1's
+     main-path kernel.
 Before the last line it prints the card's name and power limit and a
 `kernels` JSON line; the last line is the JSON result.  With no CUDA
 device, or outside the repo, it exits non-zero and prints no result.
@@ -572,7 +592,10 @@ def packet_path(torch, np, registry, ecutil, engine, counts) -> dict:
     # the committed jerasure corpus vectors through `gpu` on CUDA
     counts.reset()
     for name in CORPUS:
-        check_corpus(registry, name)
+        decoded, tried = check_corpus(registry, name)
+        if decoded != tried:
+            raise AssertionError(f"corpus {name}: {decoded} of {tried} "
+                                 f"losses decoded")
     launches["corpus"] = counts.read()
     print(f"corpus: {', '.join(CORPUS)}: encode equal, every 1- and "
           f"2-erasure decode equal")
@@ -581,13 +604,21 @@ def packet_path(torch, np, registry, ecutil, engine, counts) -> dict:
     return {"launches": launches, "info": info}
 
 
-def check_corpus(registry, name: str) -> None:
+def check_corpus(registry, name: str, plugin: str = "gpu",
+                 extra=None) -> tuple:
+    """One committed corpus vector through ``plugin`` with ``extra`` in
+    its profile (by default ``device`` on the card): the encode equals
+    the stored chunks, and every loss of one or two chunks that
+    minimum_to_decode admits decodes to them from the chunks it names
+    (the JAX package's sweep, tools/ec_non_regression.py).  Returns the
+    losses decoded and the losses tried."""
     import itertools
     d = os.path.join(HERE, "corpus", name)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     codec = registry.instance().factory(
-        "gpu", dict(manifest["profile"], device=DEV))
+        plugin, dict(manifest["profile"],
+                     **({"device": DEV} if extra is None else extra)))
     n = manifest["chunk_count"]
     stored = {}
     for i in range(n):
@@ -597,12 +628,243 @@ def check_corpus(registry, name: str) -> None:
                          corpus_payload(manifest["payload_size"]))
     if any(fresh[i] != stored[i] for i in range(n)):
         raise AssertionError(f"corpus {name}: encode != stored chunks")
-    for r in (1, 2):
-        for erased in itertools.combinations(range(n), r):
-            avail = {i: stored[i] for i in range(n) if i not in erased}
-            dec = codec.decode(set(erased), avail)
-            if any(dec[e] != stored[e] for e in erased):
-                raise AssertionError(f"corpus {name}: decode of {erased}")
+    losses = [e for r in (1, 2) for e in itertools.combinations(range(n), r)]
+    decoded = 0
+    for erased in losses:
+        try:
+            need = codec.minimum_to_decode(set(erased),
+                                           set(range(n)) - set(erased))
+        except IOError:
+            continue
+        dec = codec.decode(set(erased), {i: stored[i] for i in need},
+                           len(stored[0]))
+        if any(dec[e] != stored[e] for e in erased):
+            raise AssertionError(f"corpus {name}: decode of {erased}")
+        decoded += 1
+    return decoded, len(losses)
+
+
+# plugins phase: BASELINE config 4 (plugin=lrc k=4 m=2 l=3 inner=gpu) at
+# the JAX package's bench_lrc shape (bench.py), then CLAY with a gpu
+# scalar code, then the corpus vectors of the other plugins
+LRC_PROFILE = {"k": "4", "m": "2", "l": "3"}
+LRC_OBJ_BYTES = 1 << 20    # bench_lrc's objects: 256 KiB chunks
+LRC_BATCH = 96             # objects a batch
+LRC_BUFS = 2               # batches resident on the card
+LRC_CYCLES = 2             # passes over them, timed
+CLAY_PROFILE = {"k": "4", "m": "2", "d": "5"}
+CLAY_OBJS = 32             # objects of 4 MiB: 8 planes of 128 KiB a chunk
+CLAY_OBJ_BYTES = 4 << 20
+# corpus vector -> (plugin, profile keys added): lrc and clay on the
+# card, shec and isa on the host (host codecs in both packages)
+PLUGIN_CORPUS = {"lrc_layered": ("lrc", {"inner": "gpu", "device": DEV}),
+                 "clay_k=4_m=2": ("clay", {"scalar_mds": "gpu",
+                                           "device": DEV}),
+                 "shec_c=2_k=4_m=3": ("shec", {}),
+                 "isa_k=4_m=2": ("isa", {})}
+
+
+def plugins_path(torch, np, registry, counts) -> dict:
+    """The other codec plugins through the registry on the card.  LRC
+    k=4 m=2 l=3 over `gpu` (BASELINE config 4) at bench_lrc's shape:
+    LRC_BUFS batches of LRC_BATCH objects of 1 MiB resident on the card,
+    encode_batch_device byte-equal to the inner=jerasure host walk for
+    every object, its GiB/s at the codec boundary fenced by CUDA events
+    against that walk's, one loss in a local group and a double loss
+    that needs the global layer decoded; CLAY k=4 m=2 d=5 with
+    scalar_mds=gpu on CLAY_OBJS objects of 4 MiB: every object encoded,
+    every loss of one and two chunks of one object decoded and every
+    single lost chunk repaired from its helpers' repair sub-chunks, all
+    byte-equal to scalar_mds=jerasure on the host; then the corpus
+    vectors of lrc and clay on the card and of shec and isa (host codecs
+    in both packages) on the host.  Returns the launches of each step
+    and the row sets and inputs of B1's new shapes."""
+    import itertools
+    print(f"plugins phase on {card()} (nvidia-smi name, power limit)")
+    reg = registry.instance()
+    launches, shapes = {}, {}
+
+    # -- a. LRC over gpu
+    lrc = reg.factory("lrc", dict(LRC_PROFILE, inner="gpu", device=DEV))
+    host = reg.factory("lrc", dict(LRC_PROFILE))
+    k, n = lrc.get_data_chunk_count(), lrc.get_chunk_count()
+    L = lrc.get_chunk_size(LRC_OBJ_BYTES)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 20)
+    bufs = [torch.randint(0, 256, (LRC_BATCH, k, L), dtype=torch.uint8,
+                          device=DEV, generator=gen)
+            for _ in range(LRC_BUFS)]
+    host_s = 0.0
+    for i, buf in enumerate(bufs):
+        dev = lrc.encode_batch_device(buf).cpu().numpy()
+        arr = buf.cpu().numpy()
+        t0 = time.monotonic()
+        want = host.encode_batch(arr)
+        host_s += time.monotonic() - t0
+        if not np.array_equal(dev, want):
+            raise AssertionError(f"lrc: batch {i} device encode != the "
+                                 f"inner=jerasure host walk")
+    logical = LRC_BATCH * LRC_OBJ_BYTES
+    torch.cuda.synchronize()
+    counts.reset()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(LRC_CYCLES):
+        for buf in bufs:
+            lrc.encode_batch_device(buf)
+    b.record()
+    b.synchronize()
+    launches["plugins_lrc_encode"] = counts.read()
+    secs = a.elapsed_time(b) / 1e3
+    passes = LRC_CYCLES * LRC_BUFS
+    per_batch = launches["plugins_lrc_encode"]["B1"] / passes
+    if per_batch != len(lrc.layers):
+        raise AssertionError(f"lrc: {per_batch} B1 launches a batch, "
+                             f"{len(lrc.layers)} layers")
+    gibs = passes * logical / 2**30 / secs
+    base = LRC_BUFS * logical / 2**30 / host_s
+    print(f"lrc encode: plugin=lrc k=4 m=2 l=3 inner=gpu, {LRC_BUFS} "
+          f"batches of {LRC_BATCH} objects of {LRC_OBJ_BYTES >> 20} MiB "
+          f"on the card, every object byte-equal to the inner=jerasure "
+          f"host walk; {passes} batch encodes in {secs:.6f} s (CUDA "
+          f"events) = {gibs:.3f} GiB/s at the codec boundary; B1 "
+          f"launches a batch {per_batch:g} (one a layer); baseline "
+          f"inner=jerasure batched walk {base:.3f} GiB/s on the host "
+          f"({gibs / base:.1f}x)")
+    stacks = {}
+    for layer in lrc.layers:
+        lk = layer.erasure_code.get_data_chunk_count()
+        if lk not in stacks:
+            stacks[lk] = (layer.erasure_code.core.coding_matrix,
+                          bufs[0][:, :lk].contiguous())
+    shapes["lrc"] = stacks
+    obj = bufs[0][0].cpu().numpy().tobytes()
+    encoded = host.encode(set(range(n)), obj)
+    if lrc.encode(set(range(n)), obj) != encoded:
+        raise AssertionError("lrc: encode of one object != host")
+    for lose, what in (((0,), "local"), ((0, 1), "global")):
+        avail = {i: c for i, c in encoded.items() if i not in lose}
+        counts.reset()
+        t0 = time.monotonic()
+        dec = lrc.decode(set(lose), avail)
+        secs = time.monotonic() - t0
+        launches[f"plugins_lrc_decode_{what}"] = counts.read()
+        want = host.decode(set(lose), avail)
+        if any(dec[e] != want[e] or dec[e] != encoded[e] for e in lose):
+            raise AssertionError(f"lrc: decode of {lose} != host")
+        print(f"lrc decode of chunks {lose} ({what} layer) of one object: "
+              f"{secs:.4f} s host to host, B1 launches "
+              f"{launches[f'plugins_lrc_decode_{what}']['B1']}, equal to "
+              f"the inner=jerasure decode")
+    del bufs
+
+    # -- b. CLAY with scalar_mds=gpu
+    clay = reg.factory("clay", dict(CLAY_PROFILE, scalar_mds="gpu",
+                                    device=DEV))
+    chost = reg.factory("clay", dict(CLAY_PROFILE))
+    n = clay.get_chunk_count()
+    objs = torch.randint(0, 256, (CLAY_OBJS, CLAY_OBJ_BYTES),
+                         dtype=torch.uint8, device=DEV,
+                         generator=gen).cpu().numpy()
+    blobs = [o.tobytes() for o in objs]
+    counts.reset()
+    t0 = time.monotonic()
+    encs = [clay.encode(set(range(n)), blob) for blob in blobs]
+    secs = time.monotonic() - t0
+    launches["plugins_clay_encode"] = counts.read()
+    t0 = time.monotonic()
+    hosts = [chost.encode(set(range(n)), blob) for blob in blobs]
+    hsecs = time.monotonic() - t0
+    if encs != hosts:
+        raise AssertionError("clay: encode != scalar_mds=jerasure")
+    cs = len(encs[0][0])
+    sub = clay.get_sub_chunk_count()
+    print(f"clay encode: plugin=clay k=4 m=2 d=5 scalar_mds=gpu, "
+          f"{CLAY_OBJS} objects of {CLAY_OBJ_BYTES >> 20} MiB ({sub} "
+          f"planes of {cs // sub} bytes a chunk) in {secs:.4f} s host to "
+          f"host, B1 launches {launches['plugins_clay_encode']['B1']}; "
+          f"scalar_mds=jerasure on the host {hsecs:.4f} s; every chunk "
+          f"equal")
+    encoded = encs[0]
+    sigs = [e for r in (1, 2) for e in itertools.combinations(range(n), r)]
+    counts.reset()
+    t0 = time.monotonic()
+    for erased in sigs:
+        avail = {i: c for i, c in encoded.items() if i not in erased}
+        dec = clay.decode(set(erased), avail, cs)
+        if any(dec[e] != encoded[e] for e in erased):
+            raise AssertionError(f"clay: decode of {erased}")
+    secs = time.monotonic() - t0
+    launches["plugins_clay_decode"] = counts.read()
+    print(f"clay decode: all {len(sigs)} losses of one and two chunks of "
+          f"one object in {secs:.4f} s host to host, B1 launches "
+          f"{launches['plugins_clay_decode']['B1']}, each equal to the "
+          f"host encode")
+    sc = cs // sub
+    counts.reset()
+    t0 = time.monotonic()
+    read = 0
+    for lost in range(n):
+        minimum = clay.minimum_to_decode({lost}, set(range(n)) - {lost})
+        helpers = {i: b"".join(encoded[i][o * sc:(o + c) * sc]
+                               for o, c in runs)
+                   for i, runs in minimum.items()}
+        read += sum(len(h) for h in helpers.values())
+        out = clay.decode({lost}, helpers, cs)
+        if out[lost] != encoded[lost]:
+            raise AssertionError(f"clay: repair of chunk {lost}")
+    secs = time.monotonic() - t0
+    launches["plugins_clay_repair"] = counts.read()
+    whole = n * clay.get_data_chunk_count() * cs
+    if read * clay.q != n * clay.d * cs:
+        raise AssertionError(f"clay: repairs read {read} bytes")
+    print(f"clay repair: each of the {n} chunks of one object from "
+          f"{clay.d} helpers' repair sub-chunks, {read} bytes read against "
+          f"{whole} for whole chunks from k ({read / whole:.3f}), in "
+          f"{secs:.4f} s host to host, B1 launches "
+          f"{launches['plugins_clay_repair']['B1']}, each equal")
+    mds, pft = clay.mds.core, clay.pft.core
+    gen2 = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    shapes["clay"] = {
+        "mds": (mds._recovery_rows(tuple(range(mds.k)),
+                                   tuple(range(mds.k, mds.k + mds.m)))[0],
+                torch.randint(0, 256, (1, mds.k, sc), dtype=torch.uint8,
+                              device=DEV, generator=gen2)),
+        "pft": (pft._recovery_rows((0, 1), (2, 3))[0],
+                torch.randint(0, 256, (1, pft.k, sc), dtype=torch.uint8,
+                              device=DEV, generator=gen2))}
+    del objs, blobs, encs, hosts
+
+    # -- c. the corpus vectors of the other plugins
+    for name, (plugin, extra) in PLUGIN_CORPUS.items():
+        counts.reset()
+        n_dec, _ = check_corpus(registry, name, plugin, extra)
+        got = counts.read()
+        if extra:
+            launches[f"plugins_corpus_{name.split('_')[0]}"] = got
+        print(f"corpus {name}: encode and {n_dec} decodes equal to the "
+              f"stored chunks "
+              + (f"on the card, B1 launches {got['B1']}" if extra else
+                 "on the host (a host codec in both packages)"))
+    return {"launches": launches, "shapes": shapes}
+
+
+def measure_rows(torch, gf8_kernel, carry, matrix, rows, data) -> dict:
+    """B1 and its plain version for one GF(2^8) row set over ``data``
+    [B, k, L] on the card."""
+    import numpy as np
+    rows = np.asarray(rows, dtype=np.int64)
+    op = carry.carry_rows(rows, matrix.matrix_to_bitmatrix(rows, 8), DEV)
+    B, k, L = data.shape
+    m_out = rows.shape[0]
+    out = torch.empty((B, m_out, L), dtype=torch.uint8, device=DEV)
+    me = measure(
+        torch, lambda: gf8_kernel.gf8_apply(op, data, out),
+        lambda: gf8_kernel.gf8_apply_plain(op.bitmatrix, data), out,
+        data.numel() + out.numel(), 2 * (8 * m_out) * (8 * k) * B * L,
+        INT8_OPS)
+    me["shape"] = [[B, k, L], [B, m_out, L]]
+    return me
 
 
 def measure(torch, run, plain, out, nbytes: int, ops: int,
@@ -1296,7 +1558,8 @@ def sub_phase(name, b, cl, counts, n, threads, start, nbytes, calls,
               reqs, kernel) -> tuple:
     """Run one sub-phase of the ecbackend phase with the launch counts
     zeroed just before it; print its line; fail on a twin route, a
-    device error or a kernel that did not launch."""
+    device error or a kernel that did not launch.  ``calls`` None: the
+    codec has no batched entry point, so no lane is counted."""
     before = lane_counts(b, cl)
     seen = len(b.ledger_accum.recent())
     counts.reset()
@@ -1308,10 +1571,12 @@ def sub_phase(name, b, cl, counts, n, threads, start, nbytes, calls,
     tiles = b.ledger_accum.recent()[seen:]
     span = (max(led["deliver"] for led in tiles)
             - min(led["stage_acquire"] for led in tiles)) if tiles else 0.0
+    lane = (f"lane {d[calls]} calls for {d[reqs]} requests" if calls
+            else "no batcher lane (the codec has no batched entry point)")
     print(f"ecbackend {name}: {n} ops from {threads} threads, "
           f"{nbytes / 2**30:.3f} GiB in {wall:.4f} s host to host = "
-          f"{nbytes / 2**30 / wall:.3f} GiB/s; lane {d[calls]} calls for "
-          f"{d[reqs]} requests; launches B1 {launches['B1']} B2 "
+          f"{nbytes / 2**30 / wall:.3f} GiB/s; {lane}; launches B1 "
+          f"{launches['B1']} B2 "
           f"{launches['B2']} B3 {launches['B3']}; twin routes "
           f"{d['twin_routes']}, device errors {d['device_errors']}; "
           f"{d['frames']} sub-op frames of {d['frame_bytes'] / 2**30:.3f} "
@@ -1335,8 +1600,9 @@ def ecbackend_path(torch, np, registry, ecutil, counts) -> dict:
     ECB_THREADS threads, as many 2-column overwrites, degraded reads of
     every object with shards ERASED down, recovery of every object's
     shard 3 after its store is wiped, and a deep scrub with syndromes on
-    all 12 hosts; then a cauchy_good k=10 m=4 pool's writes.  Every
-    shard is held to the host encode (the jerasure plugin through
+    all 12 hosts; then a cauchy_good k=10 m=4 pool's writes; then an LRC
+    PG and a CLAY PG (codec_pg).  Every shard is held to the host encode
+    (the jerasure plugin, or the same LRC or CLAY code over it, through
     ecutil.encode), every read to what was written."""
     from ceph_tpu_torch.osd.backend import Mutation
     from ceph_tpu_torch.osd.batcher import EncodeBatcher
@@ -1554,11 +1820,179 @@ def ecbackend_path(torch, np, registry, ecutil, counts) -> dict:
               f"plugin's host encode; frames carried {cl.frames + pcl.frames}"
               f" sub-ops, {(cl.frame_bytes + pcl.frame_bytes) / 2**30:.3f} "
               f"GiB of payload")
+
+        # 7. the other plugins: an LRC PG and a CLAY PG, inner codes on B1
+        for name, profile, host_profile, su, lost in CODEC_PGS:
+            got, ccl = codec_pg(torch, np, registry, ecutil, counts, b, conf,
+                                gen, name, profile, host_profile, su, lost)
+            clusters.append(ccl)
+            out["launches"].update(got)
     finally:
         b.stop()
         for c in clusters:
             c.stop()
     return out
+
+
+# the ecbackend phase's PGs of the other plugins: (name, profile on the
+# card, the same code on the host, stripe unit, shard lost and recovered);
+# LRC at Ceph's default 4 KiB stripe unit, CLAY at chunks of 1 MiB so
+# that a 4 MiB object is one stripe of 8 planes of 128 KiB (at 4 KiB the
+# per-stripe plane walk would run 1024 times an object)
+CODEC_PGS = (
+    ("lrc", {"plugin": "lrc", "k": "4", "m": "2", "l": "3", "inner": "gpu"},
+     {"plugin": "lrc", "k": "4", "m": "2", "l": "3"}, 4096, 2),
+    ("clay", {"plugin": "clay", "k": "4", "m": "2", "scalar_mds": "gpu"},
+     {"plugin": "clay", "k": "4", "m": "2"}, 1 << 20, 3),
+)
+CODEC_PG_OBJS = 32         # writes of 4 MiB
+CODEC_PG_DOWN = 1          # the shard down for the degraded reads
+
+
+def codec_pg(torch, np, registry, ecutil, counts, b, conf, gen, name,
+             profile, host_profile, su, lost) -> tuple:
+    """One PG of an LRC or CLAY pool on the ECBackend: CODEC_PG_OBJS
+    writes of 4 MiB (every shard equal to the host code's encode, every
+    hinfo CRC equal), read back, degraded reads with shard CODEC_PG_DOWN
+    down, recovery of shard ``lost`` for every object, a deep scrub.
+    LRC's recovery of a chunk of a local group reads l = 3 shards; CLAY's
+    takes the sub-chunk route and reads under 0.8 of whole chunks from
+    k.  Returns the launches of each step and the cluster."""
+    from ceph_tpu_torch.osd.backend import Mutation
+    from ceph_tpu_torch.osd.pglog import MODIFY, LogEntry
+    from ceph_tpu_torch.store import GHObject, Transaction
+    from ceph_tpu_torch.utils.crc import crc32c
+
+    reg = registry.instance()
+    codec = reg.factory(profile["plugin"], dict(profile, device=DEV))
+    host = reg.factory(host_profile["plugin"], dict(host_profile))
+    k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
+    sw = k * su
+    if codec.get_chunk_size(sw) != su:
+        raise AssertionError(f"{name} pool: stripe unit not aligned")
+    sinfo = ecutil.StripeInfo(k, sw)
+    acting = pg_acting(k, n - k, ECB_OSDS, su)
+    cl = PGCluster(codec, sw, acting, conf, b)
+    p = cl.primary
+    objs = torch.randint(0, 256, (CODEC_PG_OBJS, ECB_OBJ_BYTES),
+                         dtype=torch.uint8, device=DEV,
+                         generator=gen).cpu().numpy()
+    names = [f"rbd_data.{name}.{i:016x}" for i in range(CODEC_PG_OBJS)]
+    blobs = [o.tobytes() for o in objs]
+    nbytes = objs.nbytes
+    shard_len = ECB_OBJ_BYTES // k
+    launches = {}
+    print(f"ecbackend {name} PG: {profile}, acting {acting} on {ECB_OSDS} "
+          f"OSDs, stripe unit {su}, {CODEC_PG_OBJS} objects of "
+          f"{ECB_OBJ_BYTES >> 20} MiB")
+
+    def write(i, cb):
+        v = (1, i + 1)
+        p.submit_transaction(names[i], Mutation(writes=[(0, blobs[i])]), v,
+                             [LogEntry(MODIFY, names[i], v)], cb)
+
+    def read(i, cb):
+        p.objects_read(names[i], 0, ECB_OBJ_BYTES, cb)
+
+    def check_reads(what, res):
+        for i, (r, data) in enumerate(res):
+            if r != 0 or bytes(data) != blobs[i]:
+                raise AssertionError(f"{name} {what}: object {i} read {r}, "
+                                     f"bytes differ")
+
+    res, wall, launches[f"ecbackend_{name}_write"], _ = sub_phase(
+        f"{name} writes", b, cl, counts, CODEC_PG_OBJS, ECB_THREADS, write,
+        nbytes, None, None, "B1")
+    if any(r != (0,) for r in res):
+        raise AssertionError(f"{name} writes: results {set(res)}")
+    for i in range(CODEC_PG_OBJS):
+        want = ecutil.encode(sinfo, host, blobs[i])
+        for s in range(n):
+            got = cl.shard_bytes(s, names[i])
+            h = ecutil.HashInfo.decode(cl.by_shard[s].store.getattr(
+                f"1.0s{s}", GHObject(names[i], s), ecutil.HINFO_KEY))
+            if got != bytes(want[s]) or h.crcs[s] != crc32c(got):
+                raise AssertionError(f"{name} writes: object {i} shard {s} "
+                                     f"!= the host encode or its hinfo")
+    res, rwall = drive(cl, CODEC_PG_OBJS, ECB_THREADS, read)
+    check_reads("read back", res)
+    print(f"ecbackend {name} read back: {CODEC_PG_OBJS} objects in "
+          f"{rwall:.4f} s, every byte as written; every shard equal to "
+          f"{host_profile} on the host, every hinfo CRC equal to crc32c")
+
+    cl.acting = [(s, None if s == CODEC_PG_DOWN else osd)
+                 for s, osd in enumerate(acting)]
+    res, wall, launches[f"ecbackend_{name}_degraded"], _ = sub_phase(
+        f"{name} degraded reads, shard {CODEC_PG_DOWN} down", b, cl, counts,
+        CODEC_PG_OBJS, ECB_THREADS, read, nbytes, None, None, "B1")
+    check_reads("degraded read", res)
+    cl.acting = [(s, osd) for s, osd in enumerate(acting)]
+
+    before = [cl.shard_bytes(lost, nm) for nm in names]
+    txn = Transaction()
+    for nm in names:
+        txn.remove(f"1.0s{lost}", GHObject(nm, lost))
+    cl.by_shard[lost].store.queue_transactions([txn])
+    cl.by_shard[lost].store.flush()
+    read0 = p.read_bytes_total
+    rep0 = (p.subchunk_repairs, p.repair_read_bytes, p.repair_whole_bytes)
+
+    def recover(i, cb):
+        p.recover_object(names[i], (1, i + 1), [(lost, acting[lost])], cb)
+    res, wall, launches[f"ecbackend_{name}_recovery"], _ = sub_phase(
+        f"{name} recovery of shard {lost}", b, cl, counts, CODEC_PG_OBJS,
+        ECB_THREADS, recover, CODEC_PG_OBJS * shard_len, None, None, "B1")
+    if any(r != (0,) for r in res):
+        raise AssertionError(f"{name} recovery: results {set(res)}")
+    for i, nm in enumerate(names):
+        if cl.shard_bytes(lost, nm) != before[i]:
+            raise AssertionError(f"{name} recovery: object {i} shard {lost} "
+                                 f"rebuilt wrong")
+    read = p.read_bytes_total - read0
+    repairs, took, whole = (x - y for x, y in zip(
+        (p.subchunk_repairs, p.repair_read_bytes, p.repair_whole_bytes),
+        rep0))
+    if name == "lrc":
+        # a chunk of a local group: the l = 3 others of its group
+        if read != 3 * CODEC_PG_OBJS * shard_len or repairs:
+            raise AssertionError(f"lrc recovery read {read} bytes, "
+                                 f"{repairs} sub-chunk repairs")
+        what = (f"read {read} bytes of sub-ops = 3 shards an object (l = 3"
+                f"), not k = {k}")
+    else:
+        if repairs != CODEC_PG_OBJS or not took < 0.8 * whole:
+            raise AssertionError(f"clay recovery: {repairs} sub-chunk "
+                                 f"repairs, read {took} of {whole}")
+        what = (f"{repairs} sub-chunk repairs read {took} bytes against "
+                f"{whole} for whole chunks from k ({took / whole:.3f})")
+    rate = CODEC_PG_OBJS * shard_len / wall / 1e6
+    print(f"ecbackend {name} rebuild: {CODEC_PG_OBJS} shards of {shard_len} "
+          f"bytes in {wall:.4f} s = {rate:.3f} MB/s, each byte-equal to the "
+          f"shard before; {what}")
+
+    counts.reset()
+    t0 = time.monotonic()
+    maps = []
+    for s in range(n):
+        with cl.lock:
+            maps.append(cl.by_shard[s].backend.build_scrub_map(deep=True))
+    secs = time.monotonic() - t0
+    scrub_b1 = counts.read()["B1"]
+    backs = [h.backend for h in cl.by_shard]
+    for s, smap in enumerate(maps):
+        for nm in names:
+            e = smap[nm]
+            if e["data_crc"] != crc32c(cl.shard_bytes(s, nm)) or \
+                    not e["hinfo_ok"]:
+                raise AssertionError(f"{name} scrub: shard {s} {nm}")
+    if any(be.scrub_host_fallbacks for be in backs):
+        raise AssertionError(f"{name} scrub: host fallbacks")
+    print(f"ecbackend {name} deep scrub: {n} hosts in {secs:.4f} s, every "
+          f"data CRC equal to crc32c and every hinfo good, host fallbacks "
+          f"0; B1 launches {scrub_b1} (the codec has no coding matrix of "
+          f"its own: its shards' CRCs run on the host loop, as in the JAX "
+          f"package)")
+    return launches, cl
 
 
 def scrub_path(torch, np, codec, cl, counts) -> dict:
@@ -2116,7 +2550,15 @@ PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "scrub": "B1", "ecbackend_packet": "B2",
                 "cluster_write": "B1", "cluster_overwrite": "B1",
                 "cluster_degraded": "B1", "cluster_rebuild": "B1",
-                "cluster_scrub": "B1"}
+                "cluster_scrub": "B1",
+                "plugins_lrc_encode": "B1", "plugins_lrc_decode_local": "B1",
+                "plugins_lrc_decode_global": "B1",
+                "plugins_clay_encode": "B1", "plugins_clay_decode": "B1",
+                "plugins_clay_repair": "B1", "plugins_corpus_lrc": "B1",
+                "plugins_corpus_clay": "B1"}
+PHASE_KERNEL.update({f"ecbackend_{name}_{step}": "B1"
+                     for name, *_ in CODEC_PGS
+                     for step in ("write", "degraded", "recovery")})
 KERNELS = {
     "B1": ("gf8_bitplane_apply (B1)", "ceph_tpu_torch/csrc/gf8_bitplane.cu",
            "ceph_tpu/ops/jax_engine.py:382",
@@ -2164,6 +2606,8 @@ def main() -> int:
         run = main_path(torch, np, registry, ecutil, engine, counts)
         pkt = packet_path(torch, np, registry, ecutil, engine, counts)
         elapsed("the codec paths")
+        plug = plugins_path(torch, np, registry, counts)
+        elapsed("the plugins phase")
         bat, batcher = batcher_path(torch, np, registry, ecutil, counts)
         elapsed("the batcher phase")
         try:
@@ -2177,8 +2621,9 @@ def main() -> int:
         elapsed("the ecbackend phase")
         clu = cluster_path(torch, np, registry, ecutil, counts)
         elapsed("the cluster phase")
-        launches = {**run["launches"], **pkt["launches"], **bat,
-                    "store": store["launches"], **ecb["launches"], **clu}
+        launches = {**run["launches"], **pkt["launches"],
+                    **plug["launches"], **bat, "store": store["launches"],
+                    **ecb["launches"], **clu}
         for phase, n in launches.items():
             if n[PHASE_KERNEL[phase]] < 1:
                 raise AssertionError(
@@ -2201,9 +2646,22 @@ def main() -> int:
                              info["bitmatrix"], info["d1"], 2048)}
         crc = measure_crc(torch, np, gf8_kernel, carry, torch_engine,
                           store["object"], scrub)
+        # B1 at the shapes of the plugins phase: LRC's global and local
+        # layers over a batch, CLAY's plane code and its pairwise
+        # transform over one 128 KiB sub-chunk
+        plugin_shapes = {}
+        for lk, (rows, data) in sorted(plug["shapes"]["lrc"].items(),
+                                       reverse=True):
+            plugin_shapes[f"lrc {'global' if lk == 4 else 'local'} layer"] \
+                = measure_rows(torch, gf8_kernel, carry, matrix, rows, data)
+        for part, (rows, data) in plug["shapes"]["clay"].items():
+            plugin_shapes[f"clay {part}"] = measure_rows(
+                torch, gf8_kernel, carry, matrix, rows, data)
+        del plug
         for name, me in [*meas.items(), *cross.items(),
                          *((f"B1 {k}", v) for k, v in crc.items()
-                           if k != "staged")]:
+                           if k != "staged"),
+                         *((f"B1 {k}", v) for k, v in plugin_shapes.items())]:
             if me["max_abs_err"] != 0:
                 raise AssertionError(f"{name} != plain at its timed shape")
         regs = {"B1": gf8_kernel.regs(), "B2": packet_kernel.regs(),
@@ -2241,6 +2699,12 @@ def main() -> int:
         (din, dout), groups = me["shape"], me.get("groups", 1)
         print(f"B1 at crclinear's {name} shape {list(din)} -> {list(dout)}"
               f" ({groups} launch{'es' if groups > 1 else ''}): median "
+              f"{me['ms']:.4f} ms of {len(me['runs_ms'])} runs, bound "
+              f"{me['bound_ms']:.6f} ms ({me['bound_by']}, "
+              f"{me['bound_ms'] / me['ms']:.1%} of it reached), plain "
+              f"{me['plain_ms']:.4f} ms")
+    for name, me in plugin_shapes.items():
+        print(f"B1 at the {name} shape {list(me['shape'])}: median "
               f"{me['ms']:.4f} ms of {len(me['runs_ms'])} runs, bound "
               f"{me['bound_ms']:.6f} ms ({me['bound_by']}, "
               f"{me['bound_ms'] / me['ms']:.1%} of it reached), plain "

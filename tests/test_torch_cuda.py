@@ -11,7 +11,8 @@ codes, against the numpy oracle.  B1 also takes crclinear's bitmatrices
 of many syndrome bands (split into row groups), BlueStore's checksum
 fold runs on it from the store's applier thread, and the ECBackend's
 write, degraded read and recovery run on it through the batcher, in
-one PG and in the port's 13-OSD cluster."""
+one PG and in the port's 13-OSD cluster.  LRC's layers and CLAY's plane
+codes run on it through the gpu plugin."""
 import numpy as np
 import pytest
 import torch
@@ -149,6 +150,70 @@ def test_gpu_plugin_on_cuda(card):
     assert np.array_equal(packet.encode_batch(data),
                           packet_oracle(packet.core.bitmatrix, data, 8, 32))
     assert packet_xor_kernel.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_lrc_encode_batch_device_on_cuda(card):
+    """LRC k=4 m=2 l=3 over the gpu plugin on the card: the
+    device-resident layered encode launches B1 once a layer and equals
+    the host walk of inner=jerasure; a loss inside a local group and a
+    double loss that needs the global layer decode on B1."""
+    codec = registry.instance().factory(
+        "lrc", {"k": "4", "m": "2", "l": "3", "inner": "gpu"})
+    host = registry.instance().factory(
+        "lrc", {"k": "4", "m": "2", "l": "3"})
+    assert all(layer.erasure_code.core.backend.is_cuda
+               for layer in codec.layers)
+    rng = np.random.default_rng(31)
+    batch = rng.integers(0, 256, (6, 4, 4096 + 40), dtype=np.uint8)
+    before = gf8_kernel.launches
+    dev = codec.encode_batch_device(torch.from_numpy(batch).to(card))
+    torch.cuda.synchronize()
+    assert gf8_kernel.launches == before + len(codec.layers)
+    assert dev.device.type == "cuda"
+    assert np.array_equal(dev.cpu().numpy(), host.encode_batch(batch))
+    data = rng.integers(0, 256, 50000, dtype=np.uint8).tobytes()
+    encoded = host.encode(set(range(8)), data)
+    assert codec.encode(set(range(8)), data) == encoded
+    for lose in ((1,), (0, 1)):
+        avail = {i: c for i, c in encoded.items() if i not in lose}
+        before = gf8_kernel.launches
+        dec = codec.decode(set(lose), avail)
+        assert gf8_kernel.launches > before
+        assert all(dec[e] == encoded[e] for e in lose)
+
+
+@pytest.mark.cuda
+def test_clay_repair_with_gpu_scalar_code_on_cuda(card):
+    """CLAY k=4 m=2 d=5 with scalar_mds=gpu: encode, a double-loss
+    decode and the repair of every lost chunk from its helpers' repair
+    sub-chunks run their plane codes on B1 and equal scalar_mds=jerasure
+    on the host."""
+    codec = registry.instance().factory(
+        "clay", {"k": "4", "m": "2", "scalar_mds": "gpu"})
+    host = registry.instance().factory("clay", {"k": "4", "m": "2"})
+    assert codec.mds.core.backend.is_cuda and codec.pft.core.backend.is_cuda
+    rng = np.random.default_rng(32)
+    size = host.get_chunk_size(1) * 4 * 64
+    data = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+    before = gf8_kernel.launches
+    encoded = codec.encode(set(range(6)), data)
+    assert gf8_kernel.launches > before
+    assert encoded == host.encode(set(range(6)), data)
+    cs = len(encoded[0])
+    avail = {i: c for i, c in encoded.items() if i not in (0, 5)}
+    dec = codec.decode({0, 5}, avail, cs)
+    assert dec[0] == encoded[0] and dec[5] == encoded[5]
+    sc = cs // codec.get_sub_chunk_count()
+    for lost in range(6):
+        minimum = codec.minimum_to_decode({lost}, set(range(6)) - {lost})
+        helpers = {i: b"".join(encoded[i][o * sc:(o + c) * sc]
+                               for o, c in runs)
+                   for i, runs in minimum.items()}
+        before = gf8_kernel.launches
+        out = codec.decode({lost}, helpers, cs)
+        assert gf8_kernel.launches > before
+        assert out[lost] == encoded[lost]
 
 
 def packet_oracle(B, data, w, ps):

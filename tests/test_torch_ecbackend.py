@@ -17,6 +17,9 @@ package's.
   twin, a decode that raises on the device codec.
 * Packet codes keep their route: an ECBackend write of a cauchy_good
   pool through the batcher equals jerasure's encode.
+* An LRC pool and a CLAY pool, their inner codes on the gpu plugin,
+  through both packages' ECBackend; and CLAY's sub-chunk repair of an
+  object of many stripes.
 """
 import importlib
 import threading
@@ -636,6 +639,175 @@ def test_sequence_matches_jax_package(ref_pkg, k, m, stripe_width,
             syn ^= np.asarray(port["scrub"][s][oid]["syndrome_partials"],
                               dtype=np.uint64)
         assert not syn.any(), oid
+
+
+# ------------------------- the layered and coupled-layer codes, both packages
+# (pool profile, stripe unit, stripes of each object, shard sets down for
+# the degraded reads, the shard lost and recovered); the device code is
+# the gpu plugin here (device=cpu) and the tpu plugin in the JAX package
+CODEC_POOLS = {
+    "lrc": ({"plugin": "lrc", "k": "4", "m": "2", "l": "3",
+             "inner": "gpu"}, 4096, (4, 3, 1), [(1,), (2, 5)], 2),
+    "clay": ({"plugin": "clay", "k": "4", "m": "2", "scalar_mds": "gpu"},
+             4096, (1, 1, 1), [(1,), (0, 5)], 3),
+}
+
+
+def pool_codec(pkg, profile):
+    prof = dict(profile)
+    for key in ("inner", "scalar_mds"):
+        if prof.get(key) == "gpu":
+            if pkg.name == "port":
+                prof["device"] = "cpu"
+            else:
+                prof[key] = "tpu"
+    return pkg.registry.instance().factory(prof["plugin"], prof)
+
+
+def run_pool_sequence(pkg, pool, seed):
+    """Writes, reads, degraded reads, one shard's recovery and a deep
+    scrub of an LRC or CLAY pool; returns what the packages must agree
+    on."""
+    profile, su, stripes, downs, lost = CODEC_POOLS[pool]
+    codec = pool_codec(pkg, profile)
+    n, k = codec.get_chunk_count(), codec.get_data_chunk_count()
+    sw = su * k
+    assert codec.get_chunk_size(sw) == su
+    cl = FakeCluster(pkg, n, profile=profile,
+                     conf={"osd_deep_scrub_syndrome": True}, wire=True,
+                     lock=True)
+    for host in cl.hosts.values():
+        host.backend = pkg.ecbackend.ECBackend(host, codec, stripe_width=sw)
+    primary = cl.hosts[0].backend
+    rng = np.random.default_rng(seed)
+    out = {"objs": {}, "results": []}
+    try:
+        for i, nst in enumerate(stripes):
+            data = rng.integers(0, 256, nst * sw, dtype=np.uint8).tobytes()
+            out["objs"][f"obj{i}"] = data
+            out["results"].append(_write(cl, primary, f"obj{i}", data,
+                                         (1, i + 1)))
+        cl.flush()
+        objs = out["objs"]
+        out["written"] = snapshot(cl)
+        out["reads"] = {o: _read(cl, primary, o, 0, len(d))
+                        for o, d in objs.items()}
+        out["degraded"] = {}
+        for down in downs:
+            cl.acting = [(s, None if s in down else s) for s in range(n)]
+            out["degraded"][down] = {o: _read(cl, primary, o, 0, len(d))
+                                     for o, d in objs.items()}
+        cl.acting = [(s, s) for s in range(n)]
+        coll = f"1.0s{lost}"
+        GHO = pkg.objectstore.GHObject
+        out["before"] = {o: cl.hosts[lost].store.read(coll, GHO(o, lost))
+                         for o in objs}
+        for o in objs:
+            _remove(cl, lost, coll, GHO(o, lost))
+        read0 = primary.read_bytes_total
+        out["recovery"] = [
+            _recover(cl, primary, o, primary.get_object_info(o).version,
+                     [(lost, lost)]) for o in sorted(objs)]
+        out["recovery_read"] = primary.read_bytes_total - read0
+        out["repairs"] = (primary.subchunk_repairs,
+                          primary.repair_read_bytes,
+                          primary.repair_whole_bytes)
+        out["after"] = {o: cl.hosts[lost].store.read(coll, GHO(o, lost))
+                        for o in objs}
+        cl.flush()
+        out["scrub"] = {s: cl.hosts[s].backend.build_scrub_map(deep=True)
+                        for s in range(n)}
+        out["stores"] = snapshot(cl)
+        out["logged"] = {s: list(h.logged) for s, h in cl.hosts.items()}
+    finally:
+        cl.shutdown()
+    return out
+
+
+@pytest.mark.parametrize("pool", sorted(CODEC_POOLS))
+def test_layered_and_coupled_pools_match_jax_package(ref_pkg, pool):
+    """An LRC pool (k=4 m=2 l=3, 8 shards) and a CLAY pool (k=4 m=2
+    d=5, 6 shards) through both packages' ECBackend.  Writes, shards,
+    hinfo, log entries and reads must be equal; every degraded read
+    returns the bytes written, every recovered shard the shard it
+    replaces.  CLAY's objects are one stripe each, and there the
+    degraded reads, the recovery and the scrub maps are equal too.
+    The JAX package's ECBackend gives other bytes for LRC's degraded
+    reads and recoveries and for CLAY's recovery of objects of many
+    stripes (ROADMAP faults C4 and C5), so those are held to the bytes
+    written alone."""
+    _profile, _su, stripes, _downs, lost = CODEC_POOLS[pool]
+    seed = 7100 + len(pool)
+    port = run_pool_sequence(PORT, pool, seed)
+    ref = run_pool_sequence(ref_pkg, pool, seed)
+    objs = port["objs"]
+    assert port["results"] == ref["results"] == [0] * len(objs)
+    assert port["written"] == ref["written"]
+    assert port["logged"] == ref["logged"]
+    assert port["reads"] == ref["reads"] == \
+        {o: (0, d) for o, d in objs.items()}
+    for down, reads in port["degraded"].items():
+        assert reads == {o: (0, d) for o, d in objs.items()}, down
+    assert port["recovery"] == [0] * len(objs)
+    assert port["after"] == port["before"] == ref["before"]
+    assert port["stores"] == port["written"]
+    hkey = ref_pkg.ecutil.HINFO_KEY
+    for (osd, coll, oid, shard), (data, attrs, _o) in \
+            port["stores"].items():
+        h = ref_pkg.ecutil.HashInfo.decode(attrs[hkey])
+        assert h.crcs[shard] == ref_pkg.crc.crc32c(data)
+        assert port["scrub"][shard][oid]["data_crc"] == \
+            PORT.crc.crc32c(data)
+    shard_bytes = sum(len(b) for b in port["before"].values())
+    if pool == "lrc":
+        # a chunk of a local group is rebuilt from the l = 3 others of
+        # its group, not from k = 4
+        assert port["recovery_read"] == 3 * shard_bytes
+        assert port["repairs"] == (0, 0, 0)
+    else:
+        assert port["degraded"] == ref["degraded"]
+        assert port["recovery"] == ref["recovery"]
+        assert port["after"] == ref["after"]
+        assert port["stores"] == ref["stores"]
+        assert port["scrub"] == ref["scrub"]
+        assert port["repairs"] == ref["repairs"]
+        repairs, took, whole = port["repairs"]
+        assert repairs == len(objs) and took < 0.8 * whole
+
+
+def test_clay_repair_of_objects_of_many_stripes():
+    """CLAY's sub-chunk repair of a shard of many stripes repairs each
+    stripe's chunk from that stripe's repair sub-chunks (ROADMAP fault
+    C5: the JAX package repairs the whole shard as one chunk and writes
+    other bytes)."""
+    profile = {"plugin": "clay", "k": "4", "m": "2", "scalar_mds": "gpu"}
+    codec = pool_codec(PORT, profile)
+    n, sw = 6, 4 * 4096
+    cl = FakeCluster(PORT, n, profile=profile, wire=True, lock=True)
+    try:
+        for host in cl.hosts.values():
+            host.backend = PORT.ecbackend.ECBackend(host, codec,
+                                                    stripe_width=sw)
+        primary = cl.hosts[0].backend
+        data = np.random.default_rng(72).integers(
+            0, 256, 5 * sw - 100, dtype=np.uint8).tobytes()
+        assert _write(cl, primary, "c", data, (1, 1)) == 0
+        cl.flush()
+        version = primary.get_object_info("c").version
+        for lost in range(1, n):
+            coll = f"1.0s{lost}"
+            before = cl.hosts[lost].store.read(coll, GH("c", lost))
+            _remove(cl, lost, coll, GH("c", lost))
+            assert _recover(cl, primary, "c", version,
+                            [(lost, lost)]) == 0
+            assert cl.hosts[lost].store.read(coll, GH("c", lost)) == \
+                before, lost
+        assert primary.subchunk_repairs == n - 1
+        assert primary.repair_read_bytes < 0.8 * primary.repair_whole_bytes
+        cl.acting = [(s, None if s in (1, 4) else s) for s in range(n)]
+        assert _read(cl, primary, "c", 0, len(data)) == (0, data)
+    finally:
+        cl.shutdown()
 
 
 # ------------------------------------------------ counted host routes
