@@ -645,6 +645,24 @@ class Messenger:
         for conn in conns:
             conn.mark_down()
 
+    def mark_down_restarted(self, peer_name: str) -> None:
+        """The peer named ``peer_name`` restarted at another address:
+        drop a session we ACCEPTED from its old incarnation that is
+        waiting for a redial (its socket died).  Only the old process
+        would redial it, so connect_to would otherwise hand that session
+        every later message for the peer and none would be delivered
+        until the new incarnation happened to dial us.  An open session
+        stays: the new incarnation may already have dialed in (reference
+        OSD::note_down_osd marks sessions of a gone peer down)."""
+        with self.lock:
+            conn = self.conns_by_name.get(peer_name)
+        if conn is None or conn.connector:
+            return
+        with conn.lock:
+            waiting = conn.state == "connecting"
+        if waiting:
+            conn.mark_down()
+
     def add_dispatcher(self, d: Dispatcher) -> None:
         self.dispatchers.append(d)
 

@@ -532,7 +532,12 @@ class OSD(Dispatcher):
         with self.map_lock:
             if newmap.epoch <= self.osdmap.epoch:
                 return
-            self.osdmap = newmap
+            oldmap, self.osdmap = self.osdmap, newmap
+        for osd, info in newmap.osds.items():
+            prev = oldmap.osds.get(osd)
+            if osd != self.whoami and prev is not None and \
+                    prev.addr is not None and info.addr != prev.addr:
+                self.msgr.mark_down_restarted(f"osd.{osd}")
         # central config overrides ride the map (reference
         # ConfigMonitor -> MConfig): apply changes, REVERT removals,
         # observers fire either way

@@ -19,6 +19,8 @@ monitor (reference OSDMap::Incremental, apply_incremental).
 from __future__ import annotations
 
 import copy
+import hashlib
+import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -229,6 +231,16 @@ class Incremental:
         self.old_config: List[str] = []
 
 
+#: CRUSH's raw placement of a PG depends only on the crush map, the
+#: pool's rule and size, the PG's pps and the OSD weights, not on which
+#: OSDs are up.  Every OSD of a process decodes its own map each epoch
+#: and places every PG of it again, in pure Python (about 5 ms a k=8
+#: m=4 PG), so the placements are kept here by those inputs and each one
+#: is computed once for the process while they hold.
+_RAW_PLACEMENTS: Dict[tuple, Tuple[int, ...]] = {}
+_RAW_PLACEMENTS_MAX = 1 << 16
+
+
 class OSDMap:
     def __init__(self) -> None:
         self.epoch = 0
@@ -281,9 +293,29 @@ class OSDMap:
         _pg_to_raw_osds, OSDMap.cc:2403)."""
         pool = self.pools[pgid.pool]
         pps = pool.raw_pg_to_pps(pgid.seed)
-        raw = self.crush.do_rule(pool.crush_rule, pps, pool.size,
-                                 self.osd_weights())
+        weights = self.osd_weights()
+        key = (self._crush_digest(), pool.crush_rule, pps, pool.size,
+               tuple(weights))
+        raw = _RAW_PLACEMENTS.get(key)
+        if raw is None:
+            raw = tuple(self.crush.do_rule(pool.crush_rule, pps,
+                                           pool.size, weights))
+            if len(_RAW_PLACEMENTS) >= _RAW_PLACEMENTS_MAX:
+                _RAW_PLACEMENTS.clear()
+            _RAW_PLACEMENTS[key] = raw
         return [None if o == CRUSH_ITEM_NONE else o for o in raw]
+
+    def _crush_digest(self) -> bytes:
+        """The crush map's content as a key of _RAW_PLACEMENTS, taken
+        once a map instance; a new crush map comes only by incremental
+        (apply_incremental drops it)."""
+        digest = self.__dict__.get("_crush_key")
+        if digest is None:
+            digest = hashlib.sha1(json.dumps(
+                self.crush.to_wire_dict(), sort_keys=True).encode()
+            ).digest()
+            self._crush_key = digest
+        return digest
 
     def pg_to_up_acting_osds(self, pgid: PGid
                              ) -> Tuple[List[Optional[int]], Optional[int],
@@ -318,6 +350,7 @@ class OSDMap:
             f"incremental {inc.epoch} does not follow epoch {self.epoch}"
         if inc.new_crush is not None:
             self.crush = inc.new_crush
+            self.__dict__.pop("_crush_key", None)
         if inc.new_max_osd is not None:
             self.max_osd = inc.new_max_osd
         for osd, addr in inc.new_up.items():

@@ -80,6 +80,10 @@ _WAL_HDR = struct.Struct("<IIQ")
 #: xattr-overlay tombstone for a pending rmattr
 _ATTR_DEL = object()
 
+#: seconds a reactor's apply pump waits before looking again when
+#: another thread holds the applier mutex
+APPLY_RETRY_S = 0.002
+
 
 class _Pending:
     """One WAL-durable transaction waiting for the deferred applier."""
@@ -146,6 +150,9 @@ class BlueStore(BlockStore):
         self._apply_mutex = threading.Lock()
         self._apply_thread: Optional[threading.Thread] = None
         self._reactor = None
+        # one reactor pump chain a store: set when a pump is queued on
+        # the apply reactor, cleared when it runs
+        self._pump_armed = False
         # vectored device-write buffer (apply-batch scope, under _lock)
         self._wbuf: Dict[int, bytes] = {}
         # deferred-checksum queue (apply-entry scope, under _lock)
@@ -555,27 +562,49 @@ class BlueStore(BlockStore):
         instead of the background thread (which parks).  Pass None to
         unbind (shutdown)."""
         self._reactor = reactor
+        # a pump queued on the reactor this replaces may never run
+        self._pump_armed = False
         if reactor is not None:
             self._kick_apply()
 
     def _kick_apply(self) -> None:
         r = self._reactor
         if r is not None:
+            if self._pump_armed:
+                return          # the queued pump will see this entry
+            self._pump_armed = True
             try:
                 r.call_soon(self._reactor_pump)
                 return
             except Exception:
-                pass
+                self._pump_armed = False
         with self._qcond:
             self._qcond.notify_all()
 
     def _reactor_pump(self) -> None:
-        self._pump_once()
-        with self._qcond:
-            more = self._ready_locked() and not self._stop
+        applied = self._pump_once()
         r = self._reactor
-        if more and r is not None:
+        if not self._pump_more(r):
+            self._pump_armed = False
+            # a kick that found the flag still up left its entry to
+            # this pump: look once more now that the flag is down
+            if not self._pump_more(r):
+                return
+            self._pump_armed = True
+        if applied:
             r.call_soon(self._reactor_pump)
+        else:
+            # another thread holds the applier mutex (a reader or a
+            # full queue's submitter stealing the apply): look again
+            # after APPLY_RETRY_S, where re-queuing at once would spin
+            # the reactor and starve that thread of the interpreter lock
+            r.call_later(APPLY_RETRY_S, self._reactor_pump)
+
+    def _pump_more(self, reactor) -> bool:
+        if reactor is None:
+            return False
+        with self._qcond:
+            return self._ready_locked() and not self._stop
 
     def _ready_locked(self) -> bool:
         for p in self._pending:

@@ -785,6 +785,10 @@ def _opts() -> List[Option]:
     ]
 
 
+#: sentinel of Config.get: a source that does not set the option
+_UNSET = object()
+
+
 class Config:
     """Layered config values + observer notification (reference
     common/config.cc md_config_t::set_val / apply_changes)."""
@@ -812,12 +816,19 @@ class Config:
 
     # -- access ------------------------------------------------------------
     def get(self, name: str) -> Any:
-        with self._lock:
-            if name not in self.schema:
-                raise KeyError(f"unknown option {name!r}")
-            for source in reversed(self.SOURCES):
-                if name in self._values[source]:
-                    return self._values[source][name]
+        """The option's value from the highest source that sets it.
+        Reads take no lock: every daemon of an in-process cluster reads
+        one Config on its hot paths (a crimson OSD's reactors on every
+        frame), and a reader that blocked on the lock had to win the
+        interpreter lock back among every runnable thread.  Each source
+        is a dict whose one-key reads and writes are atomic, so a read
+        racing a set or unset sees the old or the new value."""
+        if name not in self.schema:
+            raise KeyError(f"unknown option {name!r}")
+        for source in reversed(self.SOURCES):
+            value = self._values[source].get(name, _UNSET)
+            if value is not _UNSET:
+                return value
         raise AssertionError("unreachable: defaults always populated")
 
     def __getitem__(self, name: str) -> Any:

@@ -6,6 +6,13 @@ src/common/crc32c.h choosing intel-fast / aarch64 / sctp at runtime):
 built on demand with g++ into build/ and loaded with ctypes, and falls
 back to a table-driven Python implementation when no compiler is
 present.
+
+The library is loaded as a ``ctypes.PyDLL``, whose calls keep the
+interpreter lock: a call takes about a microsecond a 4 KiB block, and a
+``CDLL`` call, which drops the lock and must win it back, waited up to
+tens of milliseconds for it among a crimson cluster's runnable reactor
+threads, so a store read that checks 128 block checksums held its
+reactor for seconds.
 """
 from __future__ import annotations
 
@@ -20,12 +27,12 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 _SRC = os.path.join(_ROOT, "native", "crc32c.cc")
 _SO = os.path.join(_ROOT, "build", "libceph_tpu_torch_crc32c.so")
 
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[ctypes.PyDLL] = None
 _tried = False
 _lock = threading.Lock()
 
 
-def _load() -> Optional[ctypes.CDLL]:
+def _load() -> Optional[ctypes.PyDLL]:
     global _lib, _tried
     with _lock:
         if _lib is not None or _tried:
@@ -43,7 +50,7 @@ def _load() -> Optional[ctypes.CDLL]:
             except (OSError, subprocess.SubprocessError):
                 return None
         try:
-            lib = ctypes.CDLL(_SO)
+            lib = ctypes.PyDLL(_SO)
         except OSError:
             return None
         lib.crc32c_init()

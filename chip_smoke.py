@@ -80,33 +80,41 @@ Phases, each of which must pass or the script exits non-zero:
      host encode of the jerasure plugin (or of the same LRC or CLAY code
      over it); any twin route, device error or counted host fallback
      fails the phase;
-  8. drive the port's daemons (ceph_tpu_torch/cluster.py): the k=8 m=4
-     shapes warmed on the shared backend first, then a mon, 13 classic
-     OSDs on RAM BlueStores and a client over the loopback-TCP
-     messenger, with the JAX package's 13-OSD settings (heartbeat 2 s,
-     grace max(20 s, 12 x machine factor), down->out after 60 s, a 3 ms
+  8. drive the port's daemons (ceph_tpu_torch/cluster.py), twice: the k=8
+     m=4 shapes warmed on the shared backend first, then a mon, 13 OSDs
+     on RAM BlueStores and a client over the loopback-TCP messenger,
+     with the JAX package's 13-OSD settings (heartbeat 2 s, grace
+     max(20 s, 12 x machine factor), down->out after 60 s, a 3 ms
      batcher window) and a `gpu` k=8 m=4 pool of 32 PGs (4 KiB stripe
-     unit, allow_ec_overwrites): 128 writes of 4 MiB from one deep aio
-     queue, read back; 128 overwrites of 8 KiB on two data columns of
-     one stripe (all on the delta lane), read back; osd.12 killed with
-     its data and 128 degraded reads; its rebuild to clean (rebuild
-     MB/s), every object read back and every shard, read from the store
-     of the OSD its acting set names, equal to the jerasure encode; a
-     deep scrub of every PG through the monitor.  Each step prints its
-     host-to-host seconds, its B1 launches, the batchers' calls against
-     requests and the process's CPU seconds by thread family;
-     BlueStore's checksum batches on the card and on the host loop are
-     printed per OSD, and every primary of a written PG must have
-     checksummed on the card; any twin route, device error, open
-     breaker or counted host fallback fails the phase;
+     unit, allow_ec_overwrites).  First with the OSDs of the config
+     default, crimson (ceph_tpu_torch/crimson: reactor threads run the
+     messenger, the PGs and BlueStore's apply), on 128 objects; then
+     with classic OSDs on 32.  Steps: writes of 4 MiB from one deep aio
+     queue, read back; overwrites of 8 KiB on two data columns of one
+     stripe (all on the delta lane), read back; osd.12 killed with its
+     data and degraded reads; its rebuild to clean (rebuild MB/s), every
+     object read back and every shard, read from the store of the OSD
+     its acting set names, equal to the jerasure encode; a deep scrub of
+     every PG through the monitor; 8 writes of 4 MiB to a cauchy_good
+     k=8 m=4 pool at packetsize 2048 (B2), read back, every shard equal
+     to jerasure's.  Each step prints its host-to-host seconds, its
+     launches, the batchers' calls against requests, the process's CPU
+     seconds by thread family and its live threads; on crimson also the
+     reactors' loop-lag high-water mark and how long each BlueStore
+     apply task held its reactor.  BlueStore's checksum batches on the
+     card and on the host loop are printed per OSD, and every primary
+     of a written PG must have checksummed on the card; any twin route,
+     device error, open breaker or counted host fallback fails the
+     phase;
   9. fail unless every phase launched the kernel of its path: B1 on the
      byte-code phases, every step of the plugins phase on the card, the
      batcher's encode, decode and delta lanes, the store, the
      ECBackend's writes, overwrites, degraded reads, recovery and scrub,
      the LRC and CLAY PGs' writes, degraded reads and recoveries, and
-     every step of the cluster phase, B2 on the
-     packetsize-2048 phases, the corpus, the batcher's packet lane and
-     the ECBackend's cauchy_good pool, B3 on the packetsize-1000 phases;
+     every step of both cluster phases, B2 on the packetsize-2048
+     phases, the corpus, the batcher's packet lane, the ECBackend's
+     cauchy_good pool and the clusters' cauchy_good pools, B3 on the
+     packetsize-1000 phases;
  10. time each kernel (median of CUDA-event-timed launches) beside its
      bound and its plain version at the shapes of its path, and B2 and B3
      each at the other's shape too, B1 also at the store's shape and
@@ -2116,32 +2124,41 @@ def scrub_path(torch, np, codec, cl, counts) -> dict:
             "bands": big["bands"], "backend": backend}
 
 
-# cluster phase: the port's in-process cluster of 13 classic OSDs over the
+# cluster phases: the port's in-process cluster of 13 OSDs over the
 # loopback-TCP messenger, a k=8 m=4 `gpu` pool with 32 PGs and the 4 KiB
 # stripe unit, RAM BlueStores, one client; the settings of the JAX
-# package's own 13-OSD run (bench.py _cluster_run), classic OSDs
+# package's own 13-OSD run (bench.py _cluster_run).  The crimson phase
+# runs the OSDs of the config default at full depth; the classic phase
+# runs the same steps at a cut depth for the comparison on one card
 CL_OSDS = 13
 CL_PG_NUM = 32
-CL_OBJS = 128              # 512 MiB of 4 MiB objects (RBD's object size)
+CRIMSON_OBJS = 128         # 512 MiB of 4 MiB objects (RBD's object size)
+CLASSIC_OBJS = 32          # 128 MiB: the classic phase's cut depth
 CL_OBJ_BYTES = 4 << 20
 CL_STRIPE_UNIT = 4096
 CL_LOST = 12               # the OSD killed with its data and rebuilt
 CL_WARM_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+CL_PKT_OBJS = 8            # cauchy_good k=8 m=4 writes of 4 MiB (B2)
+CL_PKT_PG_NUM = 8
+CL_PKT_STRIPE_UNIT = 64 << 10   # packetsize 2048 x w 8 x 4: aligned
+WATCH_POLL_S = 0.005       # how often the reactors' loop lag is read
+STUCK_S = 5.0              # a reactor that has not ticked this long is
+                           # reported with its stack
 
 
-def cluster_conf(test_config, factor: float):
+def cluster_conf(test_config, factor: float, **backend):
     """test_config with the JAX package's 13-OSD overrides (heartbeats
     slowed, grace scaled by the machine factor, down->out aging of 60 s,
-    32 PGs, a 3 ms batcher window), classic OSDs, the route pinned to
-    the card and the batcher prewarmed."""
+    32 PGs, a 3 ms batcher window), the route pinned to the card and the
+    batcher prewarmed; ``backend`` is ``osd_backend=...`` or nothing, for
+    the config default (crimson)."""
     return test_config(osd_heartbeat_interval=2.0,
                        osd_heartbeat_grace=max(20.0, 12.0 * factor),
                        mon_osd_down_out_interval=60.0,
                        osd_pool_default_pg_num=CL_PG_NUM,
                        ec_tpu_queue_window_us=3000,
-                       osd_backend="classic",
                        ec_tpu_fallback_cpu=False,
-                       osd_ec_prewarm=True)
+                       osd_ec_prewarm=True, **backend)
 
 
 def cluster_prewarm(registry, crclinear, profile: dict) -> float:
@@ -2192,6 +2209,118 @@ def cpu_split(before: dict, after: dict, top: int = 8) -> str:
 
 def live_osds(c) -> list:
     return [(i, o) for i, o in sorted(c.osds.items()) if o is not None]
+
+
+class ReactorWatch:
+    """What the crimson OSDs' reactors show during a step: each reactor's
+    loop lag (``Reactor.loop_lag_s``, read every WATCH_POLL_S by a thread
+    of this script, and the samples ``util_dump`` keeps), and how long
+    each BlueStore apply task holds the reactor it runs on (the store's
+    ``_reactor_pump``, which only the apply shard calls, timed around
+    each call).  A reactor that has not finished a tick for STUCK_S is
+    reported on stderr with the stack it is in, once a stall.  A classic
+    cluster has no reactors: the watch then only counts threads."""
+
+    def __init__(self, c):
+        self.c = c
+        self.holds = []
+        self.lag_hwm = {}
+        self.stuck = 0
+        self._ticks = {}
+        self._stop = None
+        self._thread = None
+
+    def _check_stuck(self, r, now: float) -> None:
+        last = self._ticks.get(id(r))
+        if last is None or last[0] != r.ticks:
+            self._ticks[id(r)] = (r.ticks, now, False)
+            return
+        ticks, since, told = last
+        if told or now - since < STUCK_S or r._thread is None:
+            return
+        import traceback
+        frame = sys._current_frames().get(r._thread.ident)
+        stack = "".join(traceback.format_stack(frame)) if frame else "?"
+        print(f"reactor {r._name} has not ticked for {now - since:.1f} s:"
+              f"\n{stack}", file=sys.stderr, flush=True)
+        self.stuck += 1
+        self._ticks[id(r)] = (ticks, since, True)
+
+    def _wrap_stores(self) -> None:
+        for _, o in live_osds(self.c):
+            st = o.store
+            if getattr(st, "_reactor", None) is None or \
+                    "_reactor_pump" in vars(st):
+                continue
+            pump, holds = st._reactor_pump, self.holds
+
+            def timed(pump=pump, holds=holds):
+                t0 = time.perf_counter()
+                try:
+                    pump()
+                finally:
+                    holds.append(time.perf_counter() - t0)
+            st._reactor_pump = timed
+
+    def _poll(self, stop) -> None:
+        n = 0
+        while not stop.wait(WATCH_POLL_S):
+            now = time.monotonic()
+            for _, o in live_osds(self.c):
+                rs = getattr(o, "reactors", ())
+                for r in rs:
+                    role = "apply" if r is rs[-1] else "other"
+                    if r.loop_lag_s > self.lag_hwm.get(role, 0.0):
+                        self.lag_hwm[role] = r.loop_lag_s
+                    self._check_stuck(r, now)
+            n += 1
+            if n % 100 == 0:
+                self._wrap_stores()   # a revived OSD brings a new store
+
+    def start(self) -> None:
+        import threading
+        self.holds.clear()
+        self.lag_hwm = {}
+        self.stuck = 0
+        self._ticks = {}
+        self.t_wall = time.time()
+        self._wrap_stores()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll,
+                                        args=(self._stop,),
+                                        name="chip-smoke-watch",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> str:
+        """End the watch; the step's reactor line."""
+        import threading
+        self._stop.set()
+        self._thread.join()
+        threads = threading.active_count()
+        reactors = [r for _, o in live_osds(self.c)
+                    for r in getattr(o, "reactors", ())]
+        if not reactors:
+            return f"{threads} threads alive at the step's end"
+        samples = [s for r in reactors for s in r.util_dump()
+                   if s["ts"] >= self.t_wall]
+        holds = sorted(self.holds)
+        applied = (f"{len(holds)} apply tasks on the apply shards held "
+                   f"their reactor {sum(holds):.4f} s in all, median "
+                   f"{median(holds) * 1e3:.4f} ms, max "
+                   f"{holds[-1] * 1e3:.4f} ms" if holds
+                   else "no apply task ran on a reactor")
+        util = (f"{len(samples)} util_dump samples, max util "
+                f"{max(s['util'] for s in samples):.3f}, max loop lag "
+                f"{max(s['loop_lag_s'] for s in samples):.6f} s"
+                if samples else "no util_dump sample")
+        return (f"{len(reactors)} reactors; loop lag high-water mark "
+                f"{self.lag_hwm.get('apply', 0.0):.6f} s on the apply "
+                f"shards, {self.lag_hwm.get('other', 0.0):.6f} s on the "
+                f"others (read every {WATCH_POLL_S * 1e3:.0f} ms); {util}; "
+                f"{applied}; {self.stuck} reactors stuck {STUCK_S:.0f} s or "
+                f"more (stacks on stderr); {threads} threads alive at the "
+                f"step's end")
 
 
 def cluster_lanes(c) -> dict:
@@ -2271,18 +2400,43 @@ def read_all(io, names, blobs, what: str, timeout: float) -> float:
     return wall
 
 
-def cluster_path(torch, np, registry, ecutil, counts) -> dict:
-    """Drive the port's Cluster: a mon, CL_OSDS classic OSDs on RAM
-    BlueStores and a client, over the loopback-TCP messenger, with a
-    k=8 m=4 `gpu` pool of CL_PG_NUM PGs.  Steps: writes of every object
-    (then read back), two-column overwrites (the delta lane; then read
-    back), degraded reads with osd.CL_LOST lost, its rebuild to clean
-    (then every read and every shard, from the store of the OSD its
-    acting set names, equal to the jerasure encode), and a deep scrub of
-    every PG.  Each step runs with the launch counts zeroed just before
-    it and must launch B1; any twin route, device error, open breaker or
-    counted host fallback fails the phase.  Returns the launches by
-    step."""
+def check_shards(c, ecutil, GHObject, pgs, names, blobs, sinfo,
+                 codec, what: str) -> int:
+    """Every shard of every object, read from the store of the OSD its
+    acting set names, must equal ``codec``'s host encode; returns how
+    many were read."""
+    osdmap = c.mon.osdmap
+    checked = 0
+    for i, n in enumerate(names):
+        _, _, acting, _ = osdmap.pg_to_up_acting_osds(pgs[n])
+        want = ecutil.encode(sinfo, codec, blobs[i])
+        for s, osd_id in enumerate(acting):
+            got = bytes(c.stores[osd_id].read(f"{pgs[n]}s{s}",
+                                              GHObject(n, s)))
+            if got != bytes(want[s]):
+                raise AssertionError(f"{what}: {n} shard {s} on osd."
+                                     f"{osd_id} != jerasure")
+            checked += 1
+    return checked
+
+
+def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
+                 n_objs: int, **backend) -> dict:
+    """Drive the port's Cluster: a mon, CL_OSDS OSDs (``backend`` is
+    ``osd_backend=...`` or nothing, for the config default: crimson) on
+    RAM BlueStores and a client, over the loopback-TCP messenger, with a
+    k=8 m=4 `gpu` pool of CL_PG_NUM PGs.  Steps, on ``n_objs`` objects:
+    writes of every object (then read back), two-column overwrites (the
+    delta lane; then read back), degraded reads with osd.CL_LOST lost,
+    its rebuild to clean (then every read and every shard, from the
+    store of the OSD its acting set names, equal to the jerasure
+    encode), a deep scrub of every PG, and CL_PKT_OBJS writes to a
+    cauchy_good k=8 m=4 pool at packetsize 2048 (read back, every shard
+    equal to jerasure's).  Each step runs with the launch counts zeroed
+    just before it and must launch its kernel (B1; B2 for the packet
+    pool); any twin route, device error, open breaker or counted host
+    fallback fails the phase.  Returns the launches by step, keyed
+    ``{prefix}_{step}``."""
     from ceph_tpu_torch.cluster import Cluster, test_config
     from ceph_tpu_torch.ops import crclinear
     from ceph_tpu_torch.osd.batcher import EncodeBatcher
@@ -2291,18 +2445,18 @@ def cluster_path(torch, np, registry, ecutil, counts) -> dict:
     from ceph_tpu_torch.store import GHObject
     from ceph_tpu_torch.utils.machine import machine_factor
 
-    print(f"cluster phase on {card()} (nvidia-smi name, power limit)")
+    print(f"{prefix} phase on {card()} (nvidia-smi name, power limit)")
     profile = {"k": str(K), "m": str(M), "technique": "reed_sol_van"}
     secs = cluster_prewarm(registry, crclinear, profile)
-    print(f"cluster prewarm of the k={K} m={M} shapes outside the daemons: "
+    print(f"{prefix} prewarm of the k={K} m={M} shapes outside the daemons: "
           f"{secs:.4f} s")
     EncodeBatcher.reset_learning()
     EncodeBatcher.reset_breaker()
     factor = machine_factor()
-    conf = cluster_conf(test_config, factor)
+    conf = cluster_conf(test_config, factor, **backend)
     sw = K * CL_STRIPE_UNIT
     sinfo = ecutil.StripeInfo(K, sw)
-    n_objs, obj_bytes = CL_OBJS, CL_OBJ_BYTES
+    obj_bytes = CL_OBJ_BYTES
     gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
     objs = torch.randint(0, 256, (n_objs, obj_bytes), dtype=torch.uint8,
                          device=DEV, generator=gen).cpu().numpy()
@@ -2317,6 +2471,8 @@ def cluster_path(torch, np, registry, ecutil, counts) -> dict:
         c.start()
         for i in range(CL_OSDS):
             c.wait_for_osd_up(i, 60)
+        kinds = sorted({type(o).__name__ for _, o in live_osds(c)})
+        reactors = {len(getattr(o, "reactors", ())) for _, o in live_osds(c)}
         c.create_ec_profile("k8m4", plugin="gpu", **profile)
         pool_id = c.create_pool("ecpool", "erasure",
                                 erasure_code_profile="k8m4",
@@ -2337,24 +2493,31 @@ def cluster_path(torch, np, registry, ecutil, counts) -> dict:
         for _, o in live_osds(c):
             for t in list(o.encode_batcher._warm_threads):
                 t.join()
-        print(f"cluster: mon + {CL_OSDS} classic OSDs on RAM BlueStores, "
+        print(f"{prefix}: mon + {CL_OSDS} OSDs of class {kinds} "
+              f"(reactors an OSD: {sorted(reactors)}) on RAM BlueStores, "
               f"pool {pool_id} k={K} m={M} plugin=gpu with {CL_PG_NUM} PGs,"
-              f" stripe unit {CL_STRIPE_UNIT}, allow_ec_overwrites; up and "
-              f"clean in {time.monotonic() - t0:.4f} s (machine factor "
+              f" stripe unit {CL_STRIPE_UNIT}, allow_ec_overwrites, "
+              f"{n_objs} objects of {obj_bytes} bytes; up and clean in "
+              f"{time.monotonic() - t0:.4f} s (machine factor "
               f"{factor:.3f}, heartbeat grace "
               f"{conf['osd_heartbeat_grace']:.1f} s)")
+        watch = ReactorWatch(c)
 
-        def step(key, name, fn, nb):
+        def step(key, name, fn, nb, kernel="B1"):
             """Run one step with the launch counts zeroed just before it;
             ``fn`` returns the seconds of the step's own timed part and
             the rest of its line.  Print the line; fail on any counted
-            fault or a step without a B1 launch."""
+            fault or a step without a launch of ``kernel``."""
             lanes0 = cluster_lanes(c)
             cpu0, proc0 = thread_cpu(), os.times()
+            watch.start()
             counts.reset()
             ts = time.monotonic()
-            wall, extra = fn()
-            launches = counts.read()
+            try:
+                wall, extra = fn()
+            finally:
+                launches = counts.read()
+                seen = watch.stop()
             cpu1, proc1 = thread_cpu(), os.times()
             span = time.monotonic() - ts
             busy = (proc1.user + proc1.system) - (proc0.user + proc0.system)
@@ -2363,20 +2526,22 @@ def cluster_path(torch, np, registry, ecutil, counts) -> dict:
             rate = (f"{nb / 2**30:.3f} GiB in {wall:.4f} s host to host = "
                     f"{nb / 2**30 / wall:.3f} GiB/s" if nb else
                     f"{wall:.4f} s host to host")
-            print(f"cluster {name}: {rate}; launches "
+            print(f"{prefix} {name}: {rate}; launches "
                   f"B1 {launches['B1']} B2 {launches['B2']} B3 "
                   f"{launches['B3']}; batcher calls/requests summed over "
                   f"the OSDs: encode {d['calls']}/{d['reqs']}, decode "
                   f"{d['dec_calls']}/{d['dec_reqs']}, delta "
                   f"{d['delta_calls']}/{d['delta_reqs']}{extra}")
-            print(f"cluster {name} CPU: the process used {busy:.2f} s in "
+            print(f"{prefix} {name} CPU: the process used {busy:.2f} s in "
                   f"the step's {span:.4f} s ({busy / span:.2f} cores); by "
                   f"thread family, s: {cpu_split(cpu0, cpu1)}")
+            print(f"{prefix} {name} threads: {seen}")
             if any(faults.values()):
-                raise AssertionError(f"cluster {name}: {faults}")
-            if launches["B1"] < 1:
-                raise AssertionError(f"cluster {name}: B1 did not launch")
-            out[key] = launches
+                raise AssertionError(f"{prefix} {name}: {faults}")
+            if launches[kernel] < 1:
+                raise AssertionError(f"{prefix} {name}: {kernel} did not "
+                                     f"launch")
+            out[f"{prefix}_{key}"] = launches
             return wall
 
         # 1. writes: one deep aio queue from the client, then read back
@@ -2391,7 +2556,7 @@ def cluster_path(torch, np, registry, ecutil, counts) -> dict:
                           f"{rw:.4f} s ({nbytes / 2**30 / rw:.3f} GiB/s, B1 "
                           f"launches {counts.read()['B1'] - counts_w}), every"
                           f" byte as written")
-        step("cluster_write", "writes", writes, nbytes)
+        step("write", "writes", writes, nbytes)
         osdmap = c.mon.osdmap
         pgs = {names[i]: osdmap.object_locator_to_pg(names[i], pool_id)
                for i in range(n_objs)}
@@ -2415,7 +2580,7 @@ def cluster_path(torch, np, registry, ecutil, counts) -> dict:
             wall = time.monotonic() - ts
             ops = sum(be.delta_rmw_ops for be in ec_backends(c)) - delta0
             if ops != n_objs:
-                raise AssertionError(f"cluster overwrites: {ops} of "
+                raise AssertionError(f"{prefix} overwrites: {ops} of "
                                      f"{n_objs} on the delta lane")
             for i in range(n_objs):
                 objs[i][offs[i]:offs[i] + patches.shape[1]] = patches[i]
@@ -2427,14 +2592,15 @@ def cluster_path(torch, np, registry, ecutil, counts) -> dict:
                           f"read back in {rw:.4f} s (B1 launches "
                           f"{counts.read()['B1'] - counts_w}), every byte as"
                           f" written")
-        step("cluster_overwrite", "overwrites", overwrites, patches.nbytes)
+        step("overwrite", "overwrites", overwrites, patches.nbytes)
         cs = csum_report(c)
-        print("cluster BlueStore checksum batches by OSD (card, host loop): "
-              + ", ".join(f"osd.{i} {d}/{h}" for i, (d, h) in cs.items())
+        print(f"{prefix} BlueStore checksum batches by OSD (card, host "
+              f"loop): " + ", ".join(f"osd.{i} {d}/{h}"
+                                     for i, (d, h) in cs.items())
               + f"; primaries of written PGs: {sorted(primaries)}")
         cold = [i for i in primaries if cs.get(i, (0, 0))[0] == 0]
         if cold:
-            raise AssertionError(f"cluster: primaries {cold} never "
+            raise AssertionError(f"{prefix}: primaries {cold} never "
                                  f"checksummed on the card")
 
         # 3. degraded reads: osd.CL_LOST killed with its data
@@ -2447,7 +2613,7 @@ def cluster_path(torch, np, registry, ecutil, counts) -> dict:
             rw = read_all(io, names, blobs, "degraded reads", op_timeout)
             return rw, (f"; osd.{CL_LOST} killed with its data, marked down"
                         f" in {down_s:.4f} s before; every byte as written")
-        step("cluster_degraded", "degraded reads", degraded, nbytes)
+        step("degraded", "degraded reads", degraded, nbytes)
 
         # 4. rebuild: revive osd.CL_LOST empty, wait for clean
         mine = set()             # (object, shard) on osd.CL_LOST
@@ -2468,30 +2634,23 @@ def cluster_path(torch, np, registry, ecutil, counts) -> dict:
                           f"{held} bytes, after clean: {held / wall / 1e6:.3f}"
                           f" MB/s of rebuilt shard bytes from revive to "
                           f"clean")
-        step("cluster_rebuild", "rebuild", rebuild, 0)
+        step("rebuild", "rebuild", rebuild, 0)
         if not mine:
-            raise AssertionError(f"cluster rebuild: osd.{CL_LOST} holds "
+            raise AssertionError(f"{prefix} rebuild: osd.{CL_LOST} holds "
                                  f"no shard")
         rw = read_all(io, names, blobs, "read after rebuild", op_timeout)
         jer = registry.instance().factory("jerasure", {"k": str(K),
                                                        "m": str(M)})
+        checked = check_shards(c, ecutil, GHObject, pgs, names, blobs, sinfo,
+                               jer, f"{prefix} rebuild")
         osdmap = c.mon.osdmap
-        checked = 0
-        for i, n in enumerate(names):
+        for n in names:
             _, _, acting, _ = osdmap.pg_to_up_acting_osds(pgs[n])
-            want = ecutil.encode(sinfo, jer, blobs[i])
-            for s, osd_id in enumerate(acting):
-                coll = f"{pgs[n]}s{s}"
-                got = bytes(c.stores[osd_id].read(coll, GHObject(n, s)))
-                if got != bytes(want[s]):
-                    raise AssertionError(f"cluster rebuild: {n} shard {s} "
-                                         f"on osd.{osd_id} != jerasure")
-                checked += 1
             if CL_LOST in acting and \
                     (n, acting.index(CL_LOST)) not in mine:
-                raise AssertionError(f"cluster rebuild: {n} missing on "
+                raise AssertionError(f"{prefix} rebuild: {n} missing on "
                                      f"osd.{CL_LOST}")
-        print(f"cluster after rebuild: every object read back in "
+        print(f"{prefix} after rebuild: every object read back in "
               f"{rw:.4f} s; {checked} shards read from the OSD each acting "
               f"set names, each equal to the jerasure encode")
 
@@ -2525,11 +2684,55 @@ def cluster_path(torch, np, registry, ecutil, counts) -> dict:
             return time.monotonic() - ts, (f"; {len(pgids)} PGs "
                                            f"deep-scrubbed, no "
                                            f"inconsistency")
-        step("cluster_scrub", "deep scrub", scrub, nbytes * (K + M) // K)
+        step("scrub", "deep scrub", scrub, nbytes * (K + M) // K)
         cs = csum_report(c)
-        print("cluster BlueStore checksum batches by OSD at the end (card, "
-              "host loop): " + ", ".join(f"osd.{i} {d}/{h}"
-                                         for i, (d, h) in cs.items()))
+        print(f"{prefix} BlueStore checksum batches by OSD at the end "
+              f"(card, host loop): " + ", ".join(f"osd.{i} {d}/{h}"
+                                                 for i, (d, h) in cs.items()))
+
+        # 6. a cauchy_good k=8 m=4 pool at packetsize 2048: B2's lane
+        pprofile = {"k": str(K), "m": str(M), "technique": "cauchy_good",
+                    "packetsize": "2048"}
+        pcodec = registry.instance().factory("gpu", dict(pprofile))
+        psinfo = ecutil.StripeInfo(K, K * CL_PKT_STRIPE_UNIT)
+        if pcodec.get_chunk_size(psinfo.stripe_width) != CL_PKT_STRIPE_UNIT:
+            raise AssertionError("packet pool: stripe unit not aligned")
+        c.create_ec_profile("cg84", plugin="gpu",
+                            stripe_unit=str(CL_PKT_STRIPE_UNIT), **pprofile)
+        ppool = c.create_pool("cgpool", "erasure",
+                              erasure_code_profile="cg84",
+                              pg_num=CL_PKT_PG_NUM)
+        rados.wait_for_epoch(c.mon.osdmap.epoch, 30)
+        pio = rados.open_ioctx("cgpool")
+        c.wait_for_clean(120)
+        ECBackend.join_activation_warms()
+        pobjs = torch.randint(0, 256, (CL_PKT_OBJS, obj_bytes),
+                              dtype=torch.uint8, device=DEV,
+                              generator=gen).cpu().numpy()
+        pnames = [f"rbd_data.cg.{i:016x}" for i in range(CL_PKT_OBJS)]
+        pblobs = [o.tobytes() for o in pobjs]
+
+        def packet():
+            ts = time.monotonic()
+            wait_all([pio.aio_write_full(n, b)
+                      for n, b in zip(pnames, pblobs)],
+                     "cauchy_good writes", op_timeout)
+            wall = time.monotonic() - ts
+            rw = read_all(pio, pnames, pblobs, "cauchy_good read back",
+                          op_timeout)
+            posdmap = c.mon.osdmap
+            ppgs = {n: posdmap.object_locator_to_pg(n, ppool)
+                    for n in pnames}
+            pjer = registry.instance().factory("jerasure", dict(pprofile))
+            n_sh = check_shards(c, ecutil, GHObject, ppgs, pnames, pblobs,
+                                psinfo, pjer, f"{prefix} cauchy_good")
+            return wall, (f"; pool {ppool} cauchy_good k={K} m={M} "
+                          f"packetsize 2048 with {CL_PKT_PG_NUM} PGs, stripe "
+                          f"unit {CL_PKT_STRIPE_UNIT}; read back in "
+                          f"{rw:.4f} s, every byte as written; {n_sh} shards "
+                          f"equal to the jerasure encode")
+        step("packet", "cauchy_good writes", packet, pobjs.nbytes,
+             kernel="B2")
     finally:
         c.stop()
     return out
@@ -2548,9 +2751,7 @@ PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "ecbackend_write": "B1", "ecbackend_delta": "B1",
                 "ecbackend_degraded": "B1", "ecbackend_recovery": "B1",
                 "scrub": "B1", "ecbackend_packet": "B2",
-                "cluster_write": "B1", "cluster_overwrite": "B1",
-                "cluster_degraded": "B1", "cluster_rebuild": "B1",
-                "cluster_scrub": "B1",
+                "cluster_packet": "B2", "crimson_packet": "B2",
                 "plugins_lrc_encode": "B1", "plugins_lrc_decode_local": "B1",
                 "plugins_lrc_decode_global": "B1",
                 "plugins_clay_encode": "B1", "plugins_clay_decode": "B1",
@@ -2559,6 +2760,10 @@ PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
 PHASE_KERNEL.update({f"ecbackend_{name}_{step}": "B1"
                      for name, *_ in CODEC_PGS
                      for step in ("write", "degraded", "recovery")})
+PHASE_KERNEL.update({f"{prefix}_{step}": "B1"
+                     for prefix in ("cluster", "crimson")
+                     for step in ("write", "overwrite", "degraded",
+                                  "rebuild", "scrub")})
 KERNELS = {
     "B1": ("gf8_bitplane_apply (B1)", "ceph_tpu_torch/csrc/gf8_bitplane.cu",
            "ceph_tpu/ops/jax_engine.py:382",
@@ -2619,11 +2824,15 @@ def main() -> int:
         ecb = ecbackend_path(torch, np, registry, ecutil, counts)
         scrub = ecb["scrub"]
         elapsed("the ecbackend phase")
-        clu = cluster_path(torch, np, registry, ecutil, counts)
-        elapsed("the cluster phase")
+        cri = cluster_path(torch, np, registry, ecutil, counts, "crimson",
+                           CRIMSON_OBJS)
+        elapsed("the crimson cluster phase")
+        clu = cluster_path(torch, np, registry, ecutil, counts, "cluster",
+                           CLASSIC_OBJS, osd_backend="classic")
+        elapsed("the classic cluster phase")
         launches = {**run["launches"], **pkt["launches"],
                     **plug["launches"], **bat, "store": store["launches"],
-                    **ecb["launches"], **clu}
+                    **ecb["launches"], **cri, **clu}
         for phase, n in launches.items():
             if n[PHASE_KERNEL[phase]] < 1:
                 raise AssertionError(

@@ -1,15 +1,17 @@
-"""The port's daemons end to end: an in-process cluster of classic OSDs
+"""The port's daemons end to end: an in-process cluster
 (ceph_tpu_torch.cluster) over the loopback-TCP messenger.
 
 Port twins of the JAX package's live-cluster tests of tests/test_cluster.py
 (pools, degraded reads, rebuild, overwrites, client resends), each with
 the `gpu` plugin on the CPU (``device=cpu`` in the profile) where the
-reference names a codec, and osd_backend="classic" (the crimson OSD is
-not ported).  Then the slice held against the JAX package: one seeded
-sequence (writes, two-column overwrites, an OSD lost and rebuilt)
-through a 7-OSD cluster of each package, with placements, shard bytes,
-hinfo and reads equal.  Last, what many daemons in one process share:
-a process that stops its cluster exits cleanly, and one backend serves
+reference names a codec, on classic OSDs (osd_backend="classic"; the
+crimson OSD, the config default, has its own twins in
+tests/test_torch_crimson.py).  Then the slice held against the JAX
+package on each backend: one seeded sequence (writes, two-column
+overwrites, an OSD lost and rebuilt) through a 7-OSD cluster of each
+package, with placements, shard bytes, hinfo and reads equal.  Last,
+what many daemons in one process share: a process that stops its
+cluster exits cleanly on either backend, and one backend serves
 thirteen batchers at once.  The twins of the EC pipeline, RMW and scrub
 tests and the 13-OSD k=8 m=4 run are in tests/test_torch_cluster_ec.py."""
 import os
@@ -262,11 +264,11 @@ def _seq_snapshot(c, io, names):
     return acting, shards, reads
 
 
-def _run_sequence(cluster_mod, profile):
+def _run_sequence(cluster_mod, profile, backend):
     """Writes, two-column overwrites, then osd.3 lost and rebuilt, on a
-    7-OSD cluster of ``cluster_mod``'s package; a snapshot after each
-    step."""
-    conf = cluster_mod.test_config(osd_backend="classic",
+    7-OSD cluster of ``cluster_mod``'s package with ``backend`` OSDs; a
+    snapshot after each step."""
+    conf = cluster_mod.test_config(osd_backend=backend,
                                    osd_pool_default_pg_num=4,
                                    mon_osd_down_out_interval=60.0)
     payloads, patches = _seq_payloads(), _seq_patches()
@@ -279,6 +281,8 @@ def _run_sequence(cluster_mod, profile):
         for i in range(7):
             c.start_osd(i)
             c.wait_for_osd_up(i, 30)
+        assert {type(o).__name__ for o in c.osds.values()} == \
+            {"CrimsonOSD" if backend == "crimson" else "OSD"}
         c.create_ec_profile("eq", **profile)
         c.create_pool("eqp", "erasure", erasure_code_profile="eq",
                       pg_num=4)
@@ -308,19 +312,21 @@ def _run_sequence(cluster_mod, profile):
     return snaps
 
 
-def test_cluster_shards_equal_jax_package():
+@pytest.mark.parametrize("backend", ["classic", "crimson"])
+def test_cluster_shards_equal_jax_package(backend):
     """The same seeded sequence through a 7-OSD cluster of each package
-    (classic OSDs, pg_num 4, k=4 m=2): the JAX package with its `tpu`
-    plugin on the CPU, the port with `gpu` on the CPU.  After the
-    writes, the overwrites and the rebuild, every PG's acting set,
+    (``backend`` OSDs in both, pg_num 4, k=4 m=2): the JAX package with
+    its `tpu` plugin on the CPU, the port with `gpu` on the CPU.  After
+    the writes, the overwrites and the rebuild, every PG's acting set,
     every shard's bytes and hinfo on every OSD, and every read are
     equal, byte for byte."""
     from ceph_tpu import cluster as ref_cluster
     from ceph_tpu_torch import cluster as port_cluster
     port = _run_sequence(port_cluster, {"plugin": "gpu", "k": "4",
-                                        "m": "2", "device": "cpu"})
+                                        "m": "2", "device": "cpu"},
+                         backend)
     ref = _run_sequence(ref_cluster, {"plugin": "tpu", "k": "4",
-                                      "m": "2"})
+                                      "m": "2"}, backend)
     payloads, patches = _seq_payloads(), _seq_patches()
     expect = dict(payloads)
     for n, patch in patches.items():
@@ -350,19 +356,23 @@ def test_cluster_shards_equal_jax_package():
     assert any(k[0] == 3 for k in port[2][1])
 
 
-def test_process_exits_cleanly_after_cluster_stop():
+@pytest.mark.parametrize("backend", ["classic", "crimson"])
+def test_process_exits_cleanly_after_cluster_stop(backend):
     """A PG's activation warm runs on a thread of its own; one still
     inside a torch call when the interpreter exits aborts the process.
     The cluster joins those warms when it stops, so a script that stops
-    its cluster and exits at once exits 0."""
+    its cluster and exits at once exits 0, with classic OSDs and with
+    crimson OSDs, whose reactors each get 5 s to stop."""
     import subprocess
     import sys
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import os\n"
         "from ceph_tpu_torch.cluster import Cluster, test_config\n"
-        "c = Cluster(n_osds=3, conf=test_config(osd_backend='classic'))"
+        f"c = Cluster(n_osds=3, conf=test_config(osd_backend={backend!r}))"
         ".start()\n"
+        "assert type(c.osds[0]).__name__ == "
+        f"{'CrimsonOSD' if backend == 'crimson' else 'OSD'!r}\n"
         "c.create_ec_profile('p', plugin='gpu', k='2', m='1',"
         " device='cpu')\n"
         "c.create_pool('ecx', 'erasure', erasure_code_profile='p',"

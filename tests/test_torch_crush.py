@@ -445,3 +445,50 @@ def test_osdmap_wire_dict_loads_in_the_other_package(both_maps,
         for seed in range(0, PG_NUM, 8):
             assert loaded.pg_to_up_acting_osds(dst_mod.PGid(pool, seed)) \
                 == src.pg_to_up_acting_osds(src_mod.PGid(pool, seed))
+
+
+def test_cached_placements_follow_their_inputs():
+    """The port keeps CRUSH's raw placements by their inputs (crush map,
+    rule, size, pps, OSD weights) for the whole process.  Each placement
+    it hands out equals the rule run afresh: after an OSD goes down
+    (inputs unchanged), after one is marked out (weights change), in a
+    map decoded from the wire, and after a new crush map arrives by
+    incremental."""
+    m = cluster_map(port_osdmap, port_wrapper)
+
+    def fresh(osdmap, pgid):
+        pool = osdmap.pools[pgid.pool]
+        raw = osdmap.crush.do_rule(pool.crush_rule,
+                                   pool.raw_pg_to_pps(pgid.seed),
+                                   pool.size, osdmap.osd_weights())
+        return [None if o == CRUSH_ITEM_NONE else o for o in raw]
+
+    def check(osdmap):
+        for pool in (1, 2):
+            for seed in range(0, PG_NUM, 7):
+                pgid = PGid(pool, seed)
+                for _ in range(2):        # a miss, then a hit
+                    assert osdmap.pg_to_raw_osds(pgid) == \
+                        fresh(osdmap, pgid), (osdmap.epoch, pgid)
+
+    check(m)
+    inc = Incremental(m.epoch + 1)
+    inc.new_down.append(4)
+    m.apply_incremental(inc)
+    check(m)
+    mark_out(port_osdmap, m, 9)
+    check(m)
+    check(OSDMap.from_wire_dict(m.to_wire_dict()))
+    crush = build_flat_map(N_OSDS + 2)
+    rules = [crush.add_simple_rule(f"r{i}", "default", "host",
+                                   mode=mode, **kw)
+             for i, (mode, kw) in enumerate(
+                 [("indep", {"pool_type": "erasure"}), ("firstn", {})])]
+    inc = Incremental(m.epoch + 1)
+    inc.new_crush = crush
+    inc.new_max_osd = N_OSDS + 2
+    for o in (N_OSDS, N_OSDS + 1):
+        inc.new_up[o] = ("127.0.0.1", 7000 + o)
+    m.apply_incremental(inc)
+    assert [m.pools[p].crush_rule for p in (1, 2)] == rules
+    check(m)

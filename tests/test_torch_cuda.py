@@ -11,8 +11,9 @@ codes, against the numpy oracle.  B1 also takes crclinear's bitmatrices
 of many syndrome bands (split into row groups), BlueStore's checksum
 fold runs on it from the store's applier thread, and the ECBackend's
 write, degraded read and recovery run on it through the batcher, in
-one PG and in the port's 13-OSD cluster.  LRC's layers and CLAY's plane
-codes run on it through the gpu plugin."""
+one PG and in the port's 13-OSD cluster, of classic and of crimson
+OSDs.  LRC's layers and CLAY's plane codes run on it through the gpu
+plugin."""
 import numpy as np
 import pytest
 import torch
@@ -639,14 +640,14 @@ def test_ecbackend_write_degraded_read_and_recovery_on_cuda(card):
         EncodeBatcher.reset_learning()
 
 
-@pytest.mark.cuda
-def test_cluster_k8m4_write_degraded_read_and_rebuild_on_cuda(card):
-    """The port's Cluster on the card: a mon, 13 classic OSDs on RAM
-    BlueStores and a client over the loopback messenger, a `gpu` k=8 m=4
-    pool of 4 PGs (no device key: CUDA).  Writes, a degraded read with
-    osd.0 lost, its rebuild to clean; every read byte-exact, every shard
-    on the OSD its acting set names equal to the jerasure encode, B1
-    launched in each step, no twin route or device error."""
+def cluster_k8m4_on_cuda(**backend):
+    """A mon, 13 OSDs on RAM BlueStores and a client over the loopback
+    messenger, a `gpu` k=8 m=4 pool of 4 PGs (no device key: CUDA):
+    writes, a degraded read with osd.0 lost, its rebuild to clean.
+    Every read byte-exact, every shard on the OSD its acting set names
+    equal to the jerasure encode, B1 launched in each step, no twin
+    route or device error.  ``backend`` is ``osd_backend=...`` or
+    nothing, for the config default.  Returns the OSDs' class names."""
     from ceph_tpu_torch.cluster import Cluster, test_config
     from ceph_tpu_torch.osd import ecutil
     from ceph_tpu_torch.osd.batcher import EncodeBatcher
@@ -656,11 +657,11 @@ def test_cluster_k8m4_write_degraded_read_and_rebuild_on_cuda(card):
     codec = registry.instance().factory("gpu", {"k": str(k), "m": str(m)})
     codec.prewarm_geometry(4096, batches=(1, 2, 4, 8, 16, 32, 64, 128))
     EncodeBatcher.reset_learning()
-    conf = test_config(osd_backend="classic", osd_heartbeat_interval=0.5,
+    conf = test_config(osd_heartbeat_interval=0.5,
                        osd_heartbeat_grace=10.0,
                        mon_osd_down_out_interval=60.0,
                        osd_pool_default_pg_num=4,
-                       ec_tpu_fallback_cpu=False)
+                       ec_tpu_fallback_cpu=False, **backend)
     rng = np.random.default_rng(13)
     payloads = {f"c{i}": rng.integers(0, 256, 100_000 + 4096 * i,
                                       dtype=np.uint8).tobytes()
@@ -677,6 +678,7 @@ def test_cluster_k8m4_write_degraded_read_and_rebuild_on_cuda(card):
     with Cluster(n_osds=13, conf=conf, store_kind="bluestore") as c:
         for i in range(13):
             c.wait_for_osd_up(i, 60)
+        kinds = {type(o).__name__ for o in c.osds.values()}
         c.create_ec_profile("cu", plugin="gpu", k=str(k), m=str(m))
         c.create_pool("cup", "erasure", erasure_code_profile="cu")
         client = c.rados(timeout=30)
@@ -712,3 +714,19 @@ def test_cluster_k8m4_write_degraded_read_and_rebuild_on_cuda(card):
             for s, osd_id in enumerate(acting):
                 got = c.stores[osd_id].read(f"{pgid}s{s}", GHObject(name, s))
                 assert bytes(got) == bytes(want[s]), (name, s, osd_id)
+    return kinds
+
+
+@pytest.mark.cuda
+def test_cluster_k8m4_write_degraded_read_and_rebuild_on_cuda(card):
+    """The port's 13-OSD k=8 m=4 cluster on the card with classic OSDs
+    (cluster_k8m4_on_cuda)."""
+    assert cluster_k8m4_on_cuda(osd_backend="classic") == {"OSD"}
+
+
+@pytest.mark.cuda
+def test_crimson_cluster_k8m4_write_degraded_read_and_rebuild_on_cuda(card):
+    """The same cluster with osd_backend left at its default: 13 crimson
+    OSDs, whose reactors run the PGs and the BlueStore apply that folds
+    checksums on B1."""
+    assert cluster_k8m4_on_cuda() == {"CrimsonOSD"}

@@ -4,8 +4,8 @@ tests/test_scheduler.py, run on ceph_tpu_torch; then the log levels,
 the machine factor, the tracer, the stack sampler, the admin socket and
 the SLO and health helpers, each also held against the JAX package's
 module on the same inputs where the output is deterministic.  The one
-live-cluster case runs classic OSDs (osd_backend="classic"): the
-crimson OSD is not ported."""
+live-cluster case runs on both OSD backends, classic and crimson, as
+its reference does."""
 import io
 import json
 import os
@@ -490,11 +490,10 @@ def test_set_qos_live_retune_preserves_queue():
     s.close()
 
 
-@pytest.mark.parametrize("backend", ["classic"])
+@pytest.mark.parametrize("backend", ["classic", "crimson"])
 def test_qos_demotes_recovery_without_client_burn(backend):
-    """Live contention on the classic backend (the crimson OSD is not
-    ported): with the
-    recovery SLO tightened to 1 ms, mClock's demotion of the recovery
+    """Live contention on both backends: with the recovery SLO
+    tightened to 1 ms, mClock's demotion of the recovery
     class under client traffic must be VISIBLE as recovery-class burn
     while the client classes burn nothing — and both classes must
     demonstrably have ridden the per-shard op scheduler."""

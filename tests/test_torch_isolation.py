@@ -65,14 +65,13 @@ def test_no_source_imports_jax_or_ceph_tpu():
 
 
 # Relative imports of modules the port does not hold yet, each reached
-# only when its feature is used: class calls (objclass), the manager's
-# modules and daemon (mgr.modules, mgr.manager) and the crimson OSD.  A
-# slice that ports one of them removes it here; none is ever added.
+# only when its feature is used: class calls (objclass) and the
+# manager's modules and daemon (mgr.modules, mgr.manager).  A slice that
+# ports one of them removes it here; none is ever added.
 UNPORTED_RELATIVE_TARGETS = frozenset({
     "ceph_tpu_torch.objclass",
     "ceph_tpu_torch.mgr.modules",
     "ceph_tpu_torch.mgr.manager",
-    "ceph_tpu_torch.crimson",
 })
 
 
@@ -129,9 +128,11 @@ def test_every_relative_import_resolves_inside_the_port():
 
 
 def test_unported_list_is_the_four_named_features():
-    """The exception list only shrinks: these four, no other."""
+    """The exception list only shrinks: of the four features it first
+    named, the crimson OSD is ported, and these three, no other,
+    remain."""
     assert UNPORTED_RELATIVE_TARGETS == {
         "ceph_tpu_torch.objclass", "ceph_tpu_torch.mgr.modules",
-        "ceph_tpu_torch.mgr.manager", "ceph_tpu_torch.crimson"}
+        "ceph_tpu_torch.mgr.manager"}
     for t in UNPORTED_RELATIVE_TARGETS:
         assert not _resolves(t), f"{t} is ported: remove it from the list"

@@ -4,12 +4,12 @@ test_plain_wire_path_notes_no_copies; the frame-only tests there are
 twinned in tests/test_torch_msg.py) and of tests/test_auth_compress.py:
 the keyring, the auth commands, cephx sessions, the compressor registry,
 compressed frames and secure (AES-GCM) frames, on ceph_tpu_torch.
-Clusters run classic OSDs (osd_backend="classic"): the crimson OSD is
-not ported.  test_thread_count_documented_at_scale has no twin: with
-classic OSDs its threads-per-daemon-pair slope depends on how many
-heartbeat connections are open when it counts, and measured 5.7 to 6.3
-in the JAX package and 6.1 to 8.8 in the port over a few runs each,
-against its bound of 8.  The secure-mode
+Clusters run classic OSDs (osd_backend="classic"), except the twin of
+test_thread_count_documented_at_scale, which runs at the config
+default, crimson OSDs, as its reference does: with classic OSDs the
+threads-per-daemon-pair slope depends on how many heartbeat connections
+are open when it counts, and measured 6.1 to 8.8 in the port over a few
+runs, against the bound of 8.  The secure-mode
 tests need the `cryptography` package and skip without it, as the
 messenger imports it only in secure mode."""
 import os
@@ -271,6 +271,34 @@ def test_plain_wire_path_notes_no_copies(pair):
     snap = copytrack.snapshot()
     assert snap["bytes"] == 0, snap
 
+
+def test_thread_count_documented_at_scale():
+    """The messenger is thread-per-connection by design, so threads grow
+    with daemon pairs: the slope (threads per daemon pair across two
+    cluster sizes, at the config default, crimson OSDs) stays inside the
+    documented ~6 a pair, under the bound of 8, and the absolute count
+    at the larger size stays sane."""
+    def threads_at(n_osds: int) -> int:
+        with Cluster(n_osds=n_osds, conf=cluster_conf()) as c:
+            for i in range(n_osds):
+                c.wait_for_osd_up(i, 30)
+            assert all(type(o).__name__ == "CrimsonOSD"
+                       for o in c.osds.values())
+            c.create_pool(f"tc{n_osds}", "replicated", size=3)
+            io = c.rados(timeout=30).open_ioctx(f"tc{n_osds}")
+            io.write_full("x", b"y" * 1000)
+            return threading.active_count()
+
+    counts = {n: threads_at(n) for n in (3, 6)}
+    # daemons = OSDs + mon; connection pairs grow quadratically
+    pairs = {n: (n + 1) * n // 2 for n in counts}
+    slope = (counts[6] - counts[3]) / (pairs[6] - pairs[3])
+    assert slope < 8.0, (
+        f"threads per daemon pair {slope:.1f} blew the documented "
+        f"~6/pair envelope ({counts}); the 12-OSD extrapolation "
+        f"would leave the measured hundreds")
+    # and the absolute stays sane at the larger size
+    assert counts[6] < 300, counts
 
 
 # ------------------------------------------------------------ keyring

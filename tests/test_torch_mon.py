@@ -1,6 +1,7 @@
 """Port twins of the JAX package's multi-monitor quorum tests
 (tests/test_multimon.py) on ceph_tpu_torch, with classic OSDs
-(osd_backend="classic"; the crimson OSD is not ported), and the
+(osd_backend="classic"; the crimson default has its twins in
+tests/test_torch_crimson.py), and the
 monitor's maps held against the JAX package's monitor for one command
 sequence.
 
