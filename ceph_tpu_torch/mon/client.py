@@ -60,7 +60,13 @@ class MonClient(Dispatcher):
         return self.mon_addrs[self._addr_idx % len(self.mon_addrs)]
 
     # ------------------------------------------------------------------
-    def connect(self) -> None:
+    def connect(self) -> Connection:
+        """Open (or keep) the session to the current mon; -> the session
+        this call saw.  A reset on another thread may clear ``self.conn``
+        as soon as the lock drops (a dead mon refuses the dial at once),
+        so callers send on the returned session, never on a second read
+        of ``self.conn``: a send on a session that closed is dropped,
+        and the reset's hunt renews the subscription on the next mon."""
         # lossy, like the reference's client->mon policy: a dead mon
         # resets the session immediately so hunting can move on,
         # instead of a lossless reconnect loop pinning us to a corpse
@@ -83,10 +89,10 @@ class MonClient(Dispatcher):
             # epoch forever
             conn.send_message(
                 MMonSubscribe(what={"osdmap": self._latest_epoch + 1}))
+        return conn
 
     def _mon_conn(self) -> Connection:
-        self.connect()
-        return self.conn
+        return self.connect()
 
     def _retarget(self, addr: Tuple[str, int]) -> None:
         """Point the session at a specific mon (leader redirect or

@@ -850,19 +850,37 @@ class Messenger:
                         # (addr, nonce) as the session identity).
                         stale = conn
                         conn = None
-                    elif conn is not None and conn.connector and \
-                            self.name < peer_name:
-                        # CONNECTION RACE: we dialed them while they
-                        # dialed us.  Without a deterministic winner
-                        # each attach keeps killing the other side's
-                        # socket in a loop.  Rule: the dial FROM the
-                        # lexicographically smaller name wins
-                        # (reference ProtocolV2 reuses existing vs
-                        # replace by address comparison) — ours does:
-                        # reject their dial; they adopt ours when our
-                        # banner lands on their acceptor.
-                        _shutdown_close(sock)
-                        return
+                    elif conn is not None and conn.connector:
+                        # Their dial comes from a session of theirs
+                        # whose partner here is one we ACCEPTED (a
+                        # connector's partner never dials): continue
+                        # that one if it lives.  Never graft the dial
+                        # onto our own connector — its sequence numbers
+                        # belong to the session whose other end is
+                        # their accepted one, so their new session's
+                        # first frames would be dropped as duplicates
+                        # and that accepted session orphaned with its
+                        # queue (a PG's peering messages lost).
+                        partner = self._accepted_from(peer_name,
+                                                      peer_nonce)
+                        if partner is not None:
+                            conn = partner
+                        elif self.name < peer_name:
+                            # CONNECTION RACE: we dialed them while
+                            # they dialed us.  Rule: the dial FROM the
+                            # lexicographically smaller name wins
+                            # (reference ProtocolV2 reuses existing vs
+                            # replace by address comparison) — ours
+                            # does: reject their dial; their dial's
+                            # session hands its queue to the session
+                            # ours opens on their acceptor.
+                            _shutdown_close(sock)
+                            return
+                        else:
+                            # theirs wins: a new accepted session for
+                            # it; our connector stays open, unregistered,
+                            # to deliver what it already queued
+                            conn = None
                     if conn is None or conn.state == "closed" \
                             or not conn.lossless:
                         conn = self.conn_class(self, sock.getpeername(),
@@ -888,6 +906,18 @@ class Messenger:
         # _attach replaces (and closes) any old socket on the session
         # (reference ProtocolV2 "replace" on reconnect)
         conn._attach(sock, peer_name, peer_nonce, peer_in_seq)
+
+    def _accepted_from(self, peer_name: str,
+                       peer_nonce: int) -> Optional[Connection]:
+        """The live lossless session we accepted from this incarnation
+        of ``peer_name`` (caller holds the messenger lock)."""
+        for conn in reversed(self.conns):
+            if not conn.connector and conn.lossless and \
+                    conn.peer_name == peer_name and \
+                    conn.peer_nonce == peer_nonce and \
+                    conn.state != "closed":
+                return conn
+        return None
 
     # -- plumbing ----------------------------------------------------------
     def _dispatch(self, conn: Connection, msg: Message) -> None:

@@ -97,7 +97,21 @@ Phases, each of which must pass or the script exits non-zero:
      its acting set names, equal to the jerasure encode; a deep scrub of
      every PG through the monitor; 8 writes of 4 MiB to a cauchy_good
      k=8 m=4 pool at packetsize 2048 (B2), read back, every shard equal
-     to jerasure's.  Each step prints its host-to-host seconds, its
+     to jerasure's.  The crimson cluster also runs the manager
+     (Cluster(with_mgr=True), the reference's vstart layout): its seven
+     modules must be active and `mgr module ls` must answer; after the
+     writes, with no client I/O, its prometheus scrape over HTTP must
+     hold as many batcher encode calls as the OSDs' own perf dumps, with
+     the ec_device and ec_device_ledger families; after the rebuild the
+     tuner module's decisions are printed; after the deep scrub 8
+     entities of 16 MiB go through the striper (StripedIoCtx, the
+     default Layout()) to the k=8 m=4 pool (B1), are read back, get
+     5,000 bytes at offset 70,000 overwritten on the delta lane and are
+     read back again, and every shard of the first entity's first two
+     objects must equal the jerasure encode; then lock, version and
+     fence class calls from two clients on a replicated pool of size 3,
+     and one on the EC pool, must give the reference's errno values.
+     Each step prints its host-to-host seconds, its
      launches, the batchers' calls against requests, the process's CPU
      seconds by thread family and its live threads; on crimson also the
      reactors' loop-lag high-water mark and how long each BlueStore
@@ -111,7 +125,8 @@ Phases, each of which must pass or the script exits non-zero:
      batcher's encode, decode and delta lanes, the store, the
      ECBackend's writes, overwrites, degraded reads, recovery and scrub,
      the LRC and CLAY PGs' writes, degraded reads and recoveries, and
-     every step of both cluster phases, B2 on the packetsize-2048
+     every step of both cluster phases and the crimson striper step, B2
+     on the packetsize-2048
      phases, the corpus, the batcher's packet lane, the ECBackend's
      cauchy_good pool and the clusters' cauchy_good pools, B3 on the
      packetsize-1000 phases;
@@ -2217,13 +2232,16 @@ class ReactorWatch:
     of this script, and the samples ``util_dump`` keeps), and how long
     each BlueStore apply task holds the reactor it runs on (the store's
     ``_reactor_pump``, which only the apply shard calls, timed around
-    each call).  A reactor that has not finished a tick for STUCK_S is
+    each call), and how long the manager's ``perf dump`` commands hold
+    the reactor that takes them (each OSD's ``_exec_command``, timed the
+    same way).  A reactor that has not finished a tick for STUCK_S is
     reported on stderr with the stack it is in, once a stall.  A classic
     cluster has no reactors: the watch then only counts threads."""
 
     def __init__(self, c):
         self.c = c
         self.holds = []
+        self.dumps = []
         self.lag_hwm = {}
         self.stuck = 0
         self._ticks = {}
@@ -2246,8 +2264,19 @@ class ReactorWatch:
         self.stuck += 1
         self._ticks[id(r)] = (ticks, since, True)
 
-    def _wrap_stores(self) -> None:
+    def _wrap_osds(self) -> None:
         for _, o in live_osds(self.c):
+            if getattr(o, "reactors", ()) and "_exec_command" not in vars(o):
+                run, dumps = o._exec_command, self.dumps
+
+                def timed_command(cmd, run=run, dumps=dumps):
+                    t0 = time.perf_counter()
+                    try:
+                        return run(cmd)
+                    finally:
+                        if cmd.get("prefix") == "perf dump":
+                            dumps.append(time.perf_counter() - t0)
+                o._exec_command = timed_command
             st = o.store
             if getattr(st, "_reactor", None) is None or \
                     "_reactor_pump" in vars(st):
@@ -2275,16 +2304,17 @@ class ReactorWatch:
                     self._check_stuck(r, now)
             n += 1
             if n % 100 == 0:
-                self._wrap_stores()   # a revived OSD brings a new store
+                self._wrap_osds()   # a revived OSD brings a new store
 
     def start(self) -> None:
         import threading
         self.holds.clear()
+        self.dumps.clear()
         self.lag_hwm = {}
         self.stuck = 0
         self._ticks = {}
         self.t_wall = time.time()
-        self._wrap_stores()
+        self._wrap_osds()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._poll,
                                         args=(self._stop,),
@@ -2310,6 +2340,10 @@ class ReactorWatch:
                    f"{median(holds) * 1e3:.4f} ms, max "
                    f"{holds[-1] * 1e3:.4f} ms" if holds
                    else "no apply task ran on a reactor")
+        dumps = sorted(self.dumps)
+        mgr = (f"; {len(dumps)} perf dumps for the manager held their "
+               f"reactor {sum(dumps):.4f} s in all, max "
+               f"{dumps[-1] * 1e3:.4f} ms" if dumps else "")
         util = (f"{len(samples)} util_dump samples, max util "
                 f"{max(s['util'] for s in samples):.3f}, max loop lag "
                 f"{max(s['loop_lag_s'] for s in samples):.6f} s"
@@ -2318,8 +2352,8 @@ class ReactorWatch:
                 f"{self.lag_hwm.get('apply', 0.0):.6f} s on the apply "
                 f"shards, {self.lag_hwm.get('other', 0.0):.6f} s on the "
                 f"others (read every {WATCH_POLL_S * 1e3:.0f} ms); {util}; "
-                f"{applied}; {self.stuck} reactors stuck {STUCK_S:.0f} s or "
-                f"more (stacks on stderr); {threads} threads alive at the "
+                f"{applied}{mgr}; {self.stuck} reactors stuck {STUCK_S:.0f} s "
+                f"or more (stacks on stderr); {threads} threads alive at the "
                 f"step's end")
 
 
@@ -2420,8 +2454,282 @@ def check_shards(c, ecutil, GHObject, pgs, names, blobs, sinfo,
     return checked
 
 
+MGR_MODULES = ["alerts", "balancer", "dashboard", "pg_autoscaler",
+               "prometheus", "restful", "tuner"]
+STRIPER_ENTS = 8           # striped entities of 16 MiB: 128 MiB in all,
+STRIPER_BYTES = 16 << 20   # one object set of the default Layout() each
+STRIPER_PATCH = (70_000, 5_000)   # (offset, length) of each overwrite
+
+
+def mgr_modules(c) -> str:
+    """The manager found and runs the reference's seven modules, and
+    ``mgr module ls`` through the monitor answers with them."""
+    found = sorted(c.mgr.modules.available)
+    active = sorted(c.mgr.modules.active)
+    if found != MGR_MODULES or active != MGR_MODULES:
+        raise AssertionError(f"mgr modules: found {found}, active {active}")
+    ret, rs, out = c.mon_command({"prefix": "mgr module ls"})
+    if ret != 0 or sorted(out.get("enabled", ())) != MGR_MODULES:
+        raise AssertionError(f"mgr module ls: {ret} {rs} {out}")
+    host, port = c.mgr.http_addr
+    return (f"mgr at http://{host}:{port}, tick "
+            f"{c.mgr.conf['mgr_tick_interval']} s, modules active {active};"
+            f" `mgr module ls` enabled {sorted(out['enabled'])}")
+
+
+def mgr_scrape(c) -> str:
+    """With no client I/O in flight: the OSDs' own ``perf dump`` of the
+    batcher's encode calls, then two manager ticks, then the manager's
+    prometheus scrape over HTTP, then the dumps again.  The dumps must
+    not have moved, the scrape's total must equal theirs (and the
+    batchers' own count), and the ec_device and ec_device_ledger
+    families must be in it."""
+    import re
+    import urllib.request
+    osds = live_osds(c)
+    tick = c.mgr.conf["mgr_tick_interval"]
+
+    def dumps():
+        out = {}
+        for i, o in osds:
+            ret, rs, d = o._exec_command({"prefix": "perf dump"})
+            if ret != 0:
+                raise AssertionError(f"osd.{i} perf dump: {ret} {rs}")
+            out[f"osd.{i}"] = d["osd"]["ec_batch_calls"]
+        return out
+
+    before = dumps()
+    t_quiet = time.time()
+    deadline = time.monotonic() + 60
+    while True:              # every snapshot requested a tick after it
+        with c.mgr.lock:
+            req = {n: v["req_ts"] for n, v in c.mgr.daemon_perf.items()}
+        if len(req) == len(osds) and min(req.values()) >= t_quiet + tick:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"mgr snapshots not refreshed: {req}")
+        time.sleep(tick / 4)
+    waited = time.time() - t_quiet
+    host, port = c.mgr.http_addr
+    ts = time.monotonic()
+    body = urllib.request.urlopen(f"http://{host}:{port}/metrics",
+                                  timeout=60).read().decode()
+    scrape_s = time.monotonic() - ts
+    after = dumps()
+    if after != before:
+        raise AssertionError(f"encode calls moved while quiet: {before} -> "
+                             f"{after}")
+    got = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r'^ceph_osd_ec_batch_calls\{daemon="(osd\.\d+)"\} (\d+)$', body,
+        re.M)}
+    lanes = sum(o.encode_batcher.calls for _, o in osds)
+    if got != after or sum(got.values()) != lanes:
+        raise AssertionError(f"scrape {got} != perf dumps {after} (batchers"
+                             f" {lanes})")
+    fams = {fam: len(re.findall(rf"^# TYPE ceph_{fam}_(?!ledger_)", body,
+                                re.M))
+            for fam in ("ec_batcher", "ec_device", "ec_device_ledger")}
+    if not all(fams.values()):
+        raise AssertionError(f"families missing from the scrape: {fams}")
+    cpu = {}
+    for name, secs in thread_cpu().values():
+        if name.startswith("mgr-"):
+            cpu[name] = cpu.get(name, 0.0) + secs
+    return (f"scrape of {len(body)} bytes, {body.count(chr(10))} lines, "
+            f"{body.count('# TYPE')} families in {scrape_s:.4f} s, "
+            f"{waited:.4f} s after the quiet moment; encode calls "
+            f"{sum(got.values())} in the scrape = {sum(after.values())} in "
+            f"the {len(osds)} OSDs' perf dumps = {lanes} in their batchers; "
+            f"families ec_batcher {fams['ec_batcher']}, ec_device "
+            f"{fams['ec_device']}, ec_device_ledger "
+            f"{fams['ec_device_ledger']}; manager threads' CPU s since boot: "
+            + ", ".join(f"{n} {v:.2f}" for n, v in sorted(cpu.items())))
+
+
+def tuner_decisions(c, since: float) -> str:
+    """The tuner module's decision ring, each with its time from
+    ``since`` (the revive)."""
+    ret, rs, out = c.mgr.modules.handle_command("tuner", {})
+    if ret != 0:
+        raise AssertionError(f"tuner module: {ret} {rs}")
+    steps = "; ".join(
+        f"{s['time'] - since:+.1f} s {s['action']} {s['old']} -> {s['new']}"
+        f" (client burn {s['client_burn']}, recovery burn "
+        f"{s['recovery_burn']}, applied {s['applied']})"
+        for s in out["steps"]) or "none"
+    return (f"mode {out['mode']}, recovery weight {out['recovery_wgt']} "
+            f"(baseline {out['baseline_wgt']}), burn now client "
+            f"{out['client_burn']} recovery {out['recovery_burn']}; "
+            f"{len(out['steps'])} decisions: {steps}")
+
+
+def striper_entities(torch, gen):
+    """STRIPER_ENTS entities of STRIPER_BYTES and their overwrites, made
+    on the card from ``gen``."""
+    ents = torch.randint(0, 256, (STRIPER_ENTS, STRIPER_BYTES),
+                         dtype=torch.uint8, device=DEV, generator=gen)
+    patches = torch.randint(0, 256, (STRIPER_ENTS, STRIPER_PATCH[1]),
+                            dtype=torch.uint8, device=DEV, generator=gen)
+    return ents.cpu().numpy(), patches.cpu().numpy()
+
+
+def striper_step(c, ecutil, GHObject, jer, sinfo, io, pool_id, ents,
+                 patches) -> tuple:
+    """Each entity written through StripedIoCtx with the default Layout()
+    over the k=8 m=4 pool (one writer thread an entity), read back;
+    STRIPER_PATCH overwritten in each (the delta lane), read back; the
+    size and layout xattrs and every object's size as the layout places
+    them, and every shard of the first entity's first two objects equal
+    to the jerasure encode.  -> (write seconds, the rest of the line)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from ceph_tpu_torch.client.striper import Layout, StripedIoCtx, \
+        object_name
+    layout = Layout()
+    sio = StripedIoCtx(io, layout)
+    names = [f"vol.{i}" for i in range(len(ents))]
+    n_objs = STRIPER_BYTES // layout.object_size
+    per_set = layout.stripe_count * layout.object_size
+    if STRIPER_BYTES != per_set:
+        raise AssertionError("an entity must be one object set")
+    off, n = STRIPER_PATCH
+    with ThreadPoolExecutor(len(ents)) as ex:
+        ts = time.monotonic()
+        list(ex.map(lambda i: sio.write(names[i], ents[i].tobytes()),
+                    range(len(ents))))
+        wall = time.monotonic() - ts
+        ts = time.monotonic()
+        got = list(ex.map(sio.read, names))
+        rw = time.monotonic() - ts
+        for i, g in enumerate(got):
+            if g != ents[i].tobytes():
+                raise AssertionError(f"striper: {names[i]} read back differs")
+        delta0 = sum(be.delta_rmw_ops for be in ec_backends(c))
+        ts = time.monotonic()
+        list(ex.map(lambda i: sio.write(names[i], patches[i].tobytes(),
+                                        off), range(len(ents))))
+        ow = time.monotonic() - ts
+        delta = sum(be.delta_rmw_ops for be in ec_backends(c)) - delta0
+        if delta != len(ents):
+            raise AssertionError(f"striper overwrites: {delta} of "
+                                 f"{len(ents)} on the delta lane")
+        for i in range(len(ents)):
+            ents[i][off:off + n] = patches[i]
+        ts = time.monotonic()
+        got = list(ex.map(sio.read, names))
+        rw2 = time.monotonic() - ts
+    for i, g in enumerate(got):
+        if g != ents[i].tobytes():
+            raise AssertionError(f"striper: {names[i]} differs after the "
+                                 f"overwrite")
+        size, lay = sio.stat(names[i])
+        if size != STRIPER_BYTES or lay != layout:
+            raise AssertionError(f"striper: {names[i]} stat {size} {lay}")
+        for j in range(n_objs):
+            osize = io.stat(object_name(names[i], j))[0]
+            if osize != layout.object_size:
+                raise AssertionError(f"striper: object {j} of {names[i]} "
+                                     f"holds {osize} bytes")
+    # object j of an entity holds block j of every stripe of the set
+    blocks = ents[0].reshape(-1, layout.stripe_count, layout.stripe_unit)
+    onames = [object_name(names[0], j) for j in (0, 1)]
+    blobs = [blocks[:, j, :].tobytes() for j in (0, 1)]
+    osdmap = c.mon.osdmap
+    pgs = {o: osdmap.object_locator_to_pg(o, pool_id) for o in onames}
+    checked = check_shards(c, ecutil, GHObject, pgs, onames, blobs, sinfo,
+                           jer, "striper")
+    return wall, (f"; {len(ents)} entities of {STRIPER_BYTES} bytes with "
+                  f"the default Layout() (stripe unit {layout.stripe_unit}, "
+                  f"count {layout.stripe_count}, object {layout.object_size}"
+                  f"), {n_objs} objects each; read back in {rw:.4f} s; "
+                  f"{n} bytes at {off} overwritten in each in {ow:.4f} s, "
+                  f"{delta} on the delta lane, read back in {rw2:.4f} s; "
+                  f"every byte, size and layout as written; {checked} shards"
+                  f" of {onames[0]} and {onames[1]} equal to the jerasure "
+                  f"encode")
+
+
+def class_calls(c, ecio) -> str:
+    """Class calls on a replicated pool of size 3 from two clients: an
+    exclusive lock held by one is busy for the other (16), shared locks,
+    unlock, version set, inc and check (125 on a mismatch), a fence that
+    refuses the fenced-out writer (1); a call on the EC pool is not
+    supported (95).  Every code must be the reference's."""
+    import json
+    from ceph_tpu_torch.client.rados import RadosError
+    ts = time.monotonic()
+    c.create_pool("clspool", "replicated", size=3)
+    c.wait_for_clean(120)
+    ia, ib = (c.rados(timeout=60).open_ioctx("clspool") for _ in range(2))
+
+    def call(io, oid, cls, method, **kv):
+        return io.exec_cls(oid, cls, method,
+                           json.dumps(kv).encode() if kv else b"")
+
+    def errno_of(io, *a, **kv):
+        try:
+            call(io, *a, **kv)
+        except RadosError as e:
+            return e.errno
+        return 0
+
+    codes = {}
+    call(ia, "img.header", "lock", "lock", name="excl", type="exclusive",
+         owner="client.a", cookie="1")
+    codes["exclusive lock held by the other client"] = errno_of(
+        ib, "img.header", "lock", "lock", name="excl", type="exclusive",
+        owner="client.b", cookie="2")
+    for io, who in ((ia, "client.a"), (ib, "client.b")):
+        call(io, "img.header", "lock", "lock", name="sh", type="shared",
+             owner=who, tag="t")
+    lockers = json.loads(call(ia, "img.header", "lock", "get_info",
+                              name="sh"))["lockers"]
+    codes["exclusive over two shared lockers"] = errno_of(
+        ib, "img.header", "lock", "lock", name="sh", type="exclusive",
+        owner="client.c")
+    call(ia, "img.header", "lock", "unlock", name="excl", owner="client.a",
+         cookie="1")
+    call(ib, "img.header", "lock", "lock", name="excl", type="exclusive",
+         owner="client.b", cookie="2")
+    codes["unlock of a lock not held"] = errno_of(
+        ia, "img.header", "lock", "unlock", name="excl", owner="client.a",
+        cookie="1")
+    call(ia, "img.version", "version", "set", ver=5)
+    ver = json.loads(call(ib, "img.version", "version", "inc"))["ver"]
+    call(ia, "img.version", "version", "check", ver=6)
+    codes["version check mismatch"] = errno_of(
+        ia, "img.version", "version", "check", ver=99)
+    call(ia, "mds.journal", "fence", "set", epoch=3)
+    call(ia, "mds.journal", "fence", "guarded_append", epoch=3,
+         data="entry-1;")
+    call(ib, "mds.journal", "fence", "guarded_append", epoch=4,
+         data="entry-2;")
+    codes["append by the fenced-out writer"] = errno_of(
+        ia, "mds.journal", "fence", "guarded_append", epoch=3, data="late;")
+    journal = ia.read("mds.journal")
+    try:
+        ecio.exec_cls("rbd_data.cl.0000000000000000", "version", "read")
+        codes["class call on the EC pool"] = 0
+    except RadosError as e:
+        codes["class call on the EC pool"] = e.errno
+    want = {"exclusive lock held by the other client": 16,
+            "exclusive over two shared lockers": 16,
+            "unlock of a lock not held": 2, "version check mismatch": 125,
+            "append by the fenced-out writer": 1,
+            "class call on the EC pool": 95}
+    if codes != want or len(lockers) != 2 or ver != 6 \
+            or journal != b"entry-1;entry-2;":
+        raise AssertionError(f"class calls: {codes} (want {want}), shared "
+                             f"lockers {sorted(lockers)}, version {ver}, "
+                             f"journal {journal!r}")
+    return (f"replicated pool clspool of size 3, two clients, in "
+            f"{time.monotonic() - ts:.4f} s: errnos " + ", ".join(
+                f"{k} {v}" for k, v in codes.items())
+            + f"; shared lockers {sorted(lockers)}; version {ver}; journal "
+            f"{journal!r}")
+
+
 def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
-                 n_objs: int, **backend) -> dict:
+                 n_objs: int, services: bool = False, **backend) -> dict:
     """Drive the port's Cluster: a mon, CL_OSDS OSDs (``backend`` is
     ``osd_backend=...`` or nothing, for the config default: crimson) on
     RAM BlueStores and a client, over the loopback-TCP messenger, with a
@@ -2435,8 +2743,15 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
     equal to jerasure's).  Each step runs with the launch counts zeroed
     just before it and must launch its kernel (B1; B2 for the packet
     pool); any twin route, device error, open breaker or counted host
-    fallback fails the phase.  Returns the launches by step, keyed
-    ``{prefix}_{step}``."""
+    fallback fails the phase.  With ``services`` the cluster also runs
+    the manager with its seven modules (``with_mgr=True``, the
+    reference's vstart layout), and the phase adds the services above
+    the OSD: after the writes the manager's prometheus scrape, held
+    against the OSDs' own perf dumps (mgr_scrape); after the rebuild the
+    tuner module's decisions; after the deep scrub a striper step on the
+    k=8 m=4 pool (striper_step, which must launch B1) and class calls on
+    a replicated pool (class_calls).  Returns the launches by step,
+    keyed ``{prefix}_{step}``."""
     from ceph_tpu_torch.cluster import Cluster, test_config
     from ceph_tpu_torch.ops import crclinear
     from ceph_tpu_torch.osd.batcher import EncodeBatcher
@@ -2466,11 +2781,14 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
     op_timeout = 600.0
     out = {}
     t0 = time.monotonic()
-    c = Cluster(n_osds=CL_OSDS, conf=conf, store_kind="bluestore")
+    c = Cluster(n_osds=CL_OSDS, conf=conf, store_kind="bluestore",
+                with_mgr=services)
     try:
         c.start()
         for i in range(CL_OSDS):
             c.wait_for_osd_up(i, 60)
+        if services:
+            print(f"{prefix}: {mgr_modules(c)}")
         kinds = sorted({type(o).__name__ for _, o in live_osds(c)})
         reactors = {len(getattr(o, "reactors", ())) for _, o in live_osds(c)}
         c.create_ec_profile("k8m4", plugin="gpu", **profile)
@@ -2557,6 +2875,8 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
                           f"launches {counts.read()['B1'] - counts_w}), every"
                           f" byte as written")
         step("write", "writes", writes, nbytes)
+        if services:
+            print(f"{prefix} mgr: {mgr_scrape(c)}")
         osdmap = c.mon.osdmap
         pgs = {names[i]: osdmap.object_locator_to_pg(names[i], pool_id)
                for i in range(n_objs)}
@@ -2634,7 +2954,10 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
                           f"{held} bytes, after clean: {held / wall / 1e6:.3f}"
                           f" MB/s of rebuilt shard bytes from revive to "
                           f"clean")
+        t_rebuild = time.time()
         step("rebuild", "rebuild", rebuild, 0)
+        if services:
+            print(f"{prefix} tuner: {tuner_decisions(c, t_rebuild)}")
         if not mine:
             raise AssertionError(f"{prefix} rebuild: osd.{CL_LOST} holds "
                                  f"no shard")
@@ -2689,6 +3012,12 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
         print(f"{prefix} BlueStore checksum batches by OSD at the end "
               f"(card, host loop): " + ", ".join(f"osd.{i} {d}/{h}"
                                                  for i, (d, h) in cs.items()))
+        if services:
+            ents, patches = striper_entities(torch, gen)
+            step("striper", "striper", lambda: striper_step(
+                c, ecutil, GHObject, jer, sinfo, io, pool_id, ents,
+                patches), ents.nbytes)
+            print(f"{prefix} classes: {class_calls(c, io)}")
 
         # 6. a cauchy_good k=8 m=4 pool at packetsize 2048: B2's lane
         pprofile = {"k": str(K), "m": str(M), "technique": "cauchy_good",
@@ -2764,6 +3093,7 @@ PHASE_KERNEL.update({f"{prefix}_{step}": "B1"
                      for prefix in ("cluster", "crimson")
                      for step in ("write", "overwrite", "degraded",
                                   "rebuild", "scrub")})
+PHASE_KERNEL["crimson_striper"] = "B1"
 KERNELS = {
     "B1": ("gf8_bitplane_apply (B1)", "ceph_tpu_torch/csrc/gf8_bitplane.cu",
            "ceph_tpu/ops/jax_engine.py:382",
@@ -2825,7 +3155,7 @@ def main() -> int:
         scrub = ecb["scrub"]
         elapsed("the ecbackend phase")
         cri = cluster_path(torch, np, registry, ecutil, counts, "crimson",
-                           CRIMSON_OBJS)
+                           CRIMSON_OBJS, services=True)
         elapsed("the crimson cluster phase")
         clu = cluster_path(torch, np, registry, ecutil, counts, "cluster",
                            CLASSIC_OBJS, osd_backend="classic")

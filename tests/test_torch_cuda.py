@@ -13,7 +13,8 @@ fold runs on it from the store's applier thread, and the ECBackend's
 write, degraded read and recovery run on it through the batcher, in
 one PG and in the port's 13-OSD cluster, of classic and of crimson
 OSDs.  LRC's layers and CLAY's plane codes run on it through the gpu
-plugin."""
+plugin.  A crimson cluster with its manager writes a striped entity on
+it, and the manager's scrape counts the batchers' encode calls."""
 import numpy as np
 import pytest
 import torch
@@ -730,3 +731,79 @@ def test_crimson_cluster_k8m4_write_degraded_read_and_rebuild_on_cuda(card):
     OSDs, whose reactors run the PGs and the BlueStore apply that folds
     checksums on B1."""
     assert cluster_k8m4_on_cuda() == {"CrimsonOSD"}
+
+
+@pytest.mark.cuda
+def test_crimson_cluster_with_mgr_stripes_on_cuda(card):
+    """A mon, a mgr with its seven modules and 6 crimson OSDs, a `gpu`
+    k=4 m=2 pool (no device key: CUDA) with overwrites: an entity of 4
+    MiB written through the striper with the default Layout() launches
+    B1 and reads back exact, and so does a 5,000-byte overwrite.  Then,
+    with the cluster quiet, the manager's prometheus scrape holds as
+    many batcher encode calls as the OSDs' own perf dumps."""
+    import re
+    import time
+    import urllib.request
+
+    from ceph_tpu_torch.client.striper import Layout, StripedIoCtx
+    from ceph_tpu_torch.cluster import Cluster, test_config
+
+    conf = test_config(mgr_tick_interval=0.3, osd_pool_default_pg_num=8,
+                       ec_tpu_fallback_cpu=False)
+    rng = np.random.default_rng(12)
+    data = bytearray(rng.integers(0, 256, 4 << 20, dtype=np.uint8).tobytes())
+    patch = rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()
+    with Cluster(n_osds=6, conf=conf, with_mgr=True) as c:
+        for i in range(6):
+            c.wait_for_osd_up(i, 60)
+        assert {type(o).__name__ for o in c.osds.values()} == {"CrimsonOSD"}
+        assert sorted(c.mgr.modules.active) == [
+            "alerts", "balancer", "dashboard", "pg_autoscaler",
+            "prometheus", "restful", "tuner"]
+        c.create_ec_profile("cs", plugin="gpu", k="4", m="2")
+        c.create_pool("csp", "erasure", erasure_code_profile="cs")
+        ret, rs, _ = c.mon_command({"prefix": "osd pool set",
+                                    "pool": "csp",
+                                    "var": "allow_ec_overwrites",
+                                    "val": "true"})
+        assert ret == 0, rs
+        client = c.rados(timeout=30)
+        client.op_timeout = 120.0
+        client.wait_for_epoch(c.mon.osdmap.epoch, 30)
+        sio = StripedIoCtx(client.open_ioctx("csp"), Layout())
+        n0 = gf8_kernel.launches
+        sio.write("ent", bytes(data))
+        n1 = gf8_kernel.launches
+        assert n1 > n0
+        assert sio.read("ent") == bytes(data)
+        sio.write("ent", patch, 70_000)
+        data[70_000:75_000] = patch
+        assert sio.read("ent") == bytes(data)
+        osds = [(i, o) for i, o in sorted(c.osds.items()) if o is not None]
+
+        def dumps():
+            return {f"osd.{i}": o._exec_command({"prefix": "perf dump"})[2][
+                "osd"]["ec_batch_calls"] for i, o in osds}
+
+        before = dumps()
+        t_quiet = time.time()
+        deadline = time.monotonic() + 30
+        while True:
+            with c.mgr.lock:
+                req = [v["req_ts"] for v in c.mgr.daemon_perf.values()]
+            if len(req) == 6 and min(req) >= t_quiet + 0.3:
+                break
+            assert time.monotonic() < deadline, req
+            time.sleep(0.1)
+        host, port = c.mgr.http_addr
+        body = urllib.request.urlopen(f"http://{host}:{port}/metrics",
+                                      timeout=30).read().decode()
+        assert dumps() == before
+        got = {m.group(1): int(m.group(2)) for m in re.finditer(
+            r'^ceph_osd_ec_batch_calls\{daemon="(osd\.\d+)"\} (\d+)$',
+            body, re.M)}
+        assert got == before
+        assert sum(got.values()) == sum(o.encode_batcher.calls
+                                        for _, o in osds) > 0
+        assert sum(o.encode_batcher.cpu_reqs + o.encode_batcher.device_errors
+                   for _, o in osds) == 0

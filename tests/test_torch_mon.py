@@ -323,3 +323,75 @@ def test_monitor_builds_the_gpu_codec_to_validate_a_profile():
              "profile": ["plugin=gpu", "k=8", "m=4", "device=cpu",
                          "technique=nope"]})
         assert ret == -22, rs
+
+
+def test_session_reset_between_connect_and_send_is_survived():
+    """A client given every mon's address dials the one its index names;
+    a dead mon refuses at once, and the messenger's reset (another
+    thread) clears the session and hunts to the next mon.  A send that
+    read the session again after connect() then found None and raised
+    AttributeError (``cluster.mon_command`` after a leader's death, 2
+    runs in 20 beside busy processes).  The send now goes to the session
+    connect() saw, and the hunt renews the subscription on the next
+    mon."""
+    import threading
+
+    from ceph_tpu_torch.mon.client import MonClient
+    from ceph_tpu_torch.msg.messages import MMonSubscribe
+
+    class FakeConn:
+        def __init__(self, addr):
+            self.addr, self.state, self.sent = addr, "connecting", []
+
+        def send_message(self, msg):
+            if self.state != "closed":
+                self.sent.append(msg)
+
+        def mark_down(self):
+            self.state = "closed"
+
+    class FakeMsgr:
+        name = "client.fake"
+
+        def __init__(self):
+            self.conns = []
+
+        def add_dispatcher(self, d):
+            pass
+
+        def is_stopping(self):
+            return False
+
+        def connect_to(self, addr, lossless=True, peer_name=""):
+            conn = FakeConn(addr)
+            self.conns.append(conn)
+            return conn
+
+    msgr = FakeMsgr()
+    dead, live = ("127.0.0.1", 1), ("127.0.0.1", 2)
+    monc = MonClient(msgr, [dead, live])
+    connect = monc.connect
+
+    def connect_then_reset():
+        conn = connect()
+        if conn.addr == dead and conn.state != "closed":
+            # the dial to the dead mon is refused: the reset runs on the
+            # messenger's thread and clears the session before we send
+            conn.state = "closed"
+            hunt = threading.Thread(target=monc.ms_handle_reset,
+                                    args=(conn,))
+            hunt.start()
+            deadline = time.monotonic() + 5
+            while monc.conn is not None and time.monotonic() < deadline:
+                time.sleep(0.001)
+        return conn
+
+    monc.connect = connect_then_reset
+    monc.subscribe_osdmap()
+    deadline = time.monotonic() + 5
+    while time.monotonic() < deadline and not any(
+            c.addr == live and c.sent for c in msgr.conns):
+        time.sleep(0.01)
+    subs = [m for c in msgr.conns if c.addr == live for m in c.sent]
+    assert subs and all(isinstance(m, MMonSubscribe) for m in subs), subs
+    assert monc.conn is not None and monc.conn.addr == live
