@@ -9,8 +9,12 @@ actually runs (Paxos.cc "we only do one round at a time"):
 * **Election** (classic strategy): a candidate proposes with its
   ``last_committed``; peers defer to the candidate with the newest
   data, ties broken by lowest rank (reference ElectionLogic::
-  receive_propose).  A majority of acks -> victory broadcast; epoch is
-  odd during elections, bumped even on victory (reference
+  receive_propose), and within one epoch only to a candidate better
+  than the one they already acked (``leader_acked``).  Acks from every
+  monitor -> victory at once; a majority only -> victory when the
+  election period ends, if the candidate has not deferred meanwhile
+  (reference ElectionLogic::receive_ack / end_election_period); epoch
+  is odd during elections, bumped even on victory (reference
   Elector::bump_epoch).
 * **Paxos commit**: the leader turns each map mutation into a proposed
   full-map value, sends ``begin`` to the quorum, waits for a majority
@@ -31,6 +35,7 @@ behavior, "any mon can be asked, the leader answers", is the same).
 """
 from __future__ import annotations
 
+import copy
 import threading
 import time
 from typing import Dict, List, Optional, Set, Tuple
@@ -65,7 +70,11 @@ class QuorumService:
         self.leader: Optional[int] = None if len(monmap) > 1 else rank
         self.quorum: Set[int] = {rank}
         self._acks: Dict[int, int] = {}  # rank -> last_committed
+        # the candidate this monitor acked in the current election, and
+        # its (last_committed, -rank): only a better one is acked next
+        # (reference ElectionLogic leader_acked)
         self._deferred_to: Optional[int] = None
+        self._deferred_key: Optional[Tuple[int, int]] = None
         self._election_started = 0.0
         self._lease_expiry = 0.0
         self._proposal: Optional[Proposal] = None
@@ -115,9 +124,18 @@ class QuorumService:
 
     def _broadcast(self, msg: MMonMon,
                    ranks: Optional[Set[int]] = None) -> None:
+        """Send ``msg`` to every other monitor (or to ``ranks``), each
+        its own copy: a connection stamps its sequence number on the
+        message object it sends, so one object queued on two
+        connections carries the first one's number on both, and the
+        second peer then drops as duplicates the messages of its own
+        session numbered below it (a lagging monitor never got the
+        maps it asked for)."""
         for r in range(self.n_mons):
             if r != self.rank and (ranks is None or r in ranks):
-                self._send(r, msg)
+                one = copy.copy(msg)
+                one.seq, one.hops = 0, None
+                self._send(r, one)
 
     # ----------------------------------------------------------------- #
     # election (reference ElectionLogic classic strategy)
@@ -137,6 +155,7 @@ class QuorumService:
                 self.election_epoch += 2
             self.leader = None
             self._deferred_to = None
+            self._deferred_key = None
             self._acks = {self.rank: self.mon.osdmap.epoch}
             self._ack_pendings = {}
             self._election_started = time.monotonic()
@@ -161,12 +180,21 @@ class QuorumService:
                 return                   # stale round
             stable = self.election_epoch % 2 == 0 and \
                 self.leader is not None
+            theirs = (msg.last_committed, -msg.from_rank)
+            if self._deferred_key is not None and \
+                    msg.epoch == self.election_epoch and \
+                    theirs < self._deferred_key:
+                # already acked a better candidate in this round: a
+                # second ack would hand both a majority (reference
+                # propose_classic_handler "no, we already acked")
+                return
             if self._defers_to(msg.last_committed, msg.from_rank):
                 self.election_epoch = max(self.election_epoch, msg.epoch)
                 if self.election_epoch % 2 == 0:
                     self.election_epoch += 1
                 self.leader = None
                 self._deferred_to = msg.from_rank
+                self._deferred_key = theirs
                 self._election_started = time.monotonic()
                 epoch = self.election_epoch
                 lc = self.mon.osdmap.epoch
@@ -203,6 +231,7 @@ class QuorumService:
                     self.election_epoch = msg.epoch \
                         if msg.epoch % 2 == 1 else msg.epoch + 1
                     self._acks = {self.rank: self.mon.osdmap.epoch}
+                    self._deferred_to = self._deferred_key = None
                     self._election_started = time.monotonic()
                 counter = MMonMon(op="propose", from_rank=self.rank,
                                   epoch=self.election_epoch,
@@ -234,15 +263,28 @@ class QuorumService:
 
     def _handle_ack(self, msg: MMonMon) -> None:
         with self.mon.lock:
-            if msg.epoch != self.election_epoch or self.in_quorum():
-                return
+            if msg.epoch != self.election_epoch or self.in_quorum() \
+                    or self._deferred_to is not None:
+                return                   # stale, or no longer a candidate
             self._acks[msg.from_rank] = msg.last_committed
             if msg.version and msg.value is not None:
                 prev = self._ack_pendings.get(msg.version)
                 if prev is None or msg.pn > prev[0]:
                     self._ack_pendings[msg.version] = (msg.pn,
                                                       msg.value)
-            if len(self._acks) < self.majority:
+            # every monitor acked: no better candidate can be left, so
+            # win now; a bare majority waits for the election period to
+            # end (tick), in which a better candidate's propose arrives
+            # and makes this one defer
+            everyone = len(self._acks) == self.n_mons
+        if everyone:
+            self._declare_victory()
+
+    def _declare_victory(self) -> None:
+        with self.mon.lock:
+            if self.in_quorum() or self._deferred_to is not None or \
+                    self.election_epoch % 2 == 0 or \
+                    len(self._acks) < self.majority:
                 return
             # victory: epoch goes even, quorum = the acked set
             self.election_epoch += 1
@@ -476,9 +518,19 @@ class QuorumService:
                               "election")
                 self.start_election()
         else:
-            # electing: restart a stalled round
-            if now - self._election_started > \
-                    self.mon.conf["mon_election_timeout"]:
+            # electing: at the end of the election period a candidate
+            # with a majority of acks wins; otherwise the round restarts
+            # (reference end_election_period).  A monitor that deferred
+            # gives its candidate a further half period to declare
+            # (reference Elector::defer resets its timer with extra time)
+            period = self.mon.conf["mon_election_timeout"]
+            with self.mon.lock:
+                waited = now - self._election_started
+                candidate = self._deferred_to is None
+                won = candidate and len(self._acks) >= self.majority
+            if won and waited > period:
+                self._declare_victory()
+            elif waited > (period if candidate else 1.5 * period):
                 self.start_election()
 
     # ----------------------------------------------------------------- #

@@ -2459,6 +2459,22 @@ MGR_MODULES = ["alerts", "balancer", "dashboard", "pg_autoscaler",
 STRIPER_ENTS = 8           # striped entities of 16 MiB: 128 MiB in all,
 STRIPER_BYTES = 16 << 20   # one object set of the default Layout() each
 STRIPER_PATCH = (70_000, 5_000)   # (offset, length) of each overwrite
+# the client services above the striper, on the crimson cluster
+SERVICE_THREADS = 8        # client threads of each service step
+RBD_WRITTEN = 256 << 20    # of the 1 GiB default image: 64 objects of 4 MiB
+RBD_PATCH = 8 << 10        # an overwrite, two 4 KiB columns of one stripe:
+                           # two rounds after the snapshot, one an object
+RBD_SHRINK = 192 << 20     # the resize: objects 48-63 leave the head
+SHARD_SAMPLE = 8           # data objects whose every shard is checked
+FS_DIRS = 4
+FS_FILES = 32              # files of 4 MiB: 128 MiB, the default layout
+FS_FILE_BYTES = 4 << 20
+FS_UNLINKS = 4
+RGW_PUTS = 16              # S3 PUTs of 4 MiB over HTTP
+RGW_OBJ_BYTES = 4 << 20
+RGW_PARTS = 3              # a multipart upload of 3 parts of 5 MiB
+RGW_PART_BYTES = 5 << 20
+RGW_RANGE = (1_000_000, 2_999_999)   # the ranged GET, inclusive
 
 
 def mgr_modules(c) -> str:
@@ -2563,6 +2579,16 @@ def tuner_decisions(c, since: float) -> str:
             f"{len(out['steps'])} decisions: {steps}")
 
 
+def sample_shards(c, ecutil, GHObject, jer, sinfo, pool_id, onames, blobs,
+                  what: str) -> int:
+    """check_shards over ``onames``, placed by the current map in the pool
+    ``pool_id``."""
+    osdmap = c.mon.osdmap
+    pgs = {o: osdmap.object_locator_to_pg(o, pool_id) for o in onames}
+    return check_shards(c, ecutil, GHObject, pgs, onames, blobs, sinfo, jer,
+                        what)
+
+
 def striper_entities(torch, gen):
     """STRIPER_ENTS entities of STRIPER_BYTES and their overwrites, made
     on the card from ``gen``."""
@@ -2633,10 +2659,8 @@ def striper_step(c, ecutil, GHObject, jer, sinfo, io, pool_id, ents,
     blocks = ents[0].reshape(-1, layout.stripe_count, layout.stripe_unit)
     onames = [object_name(names[0], j) for j in (0, 1)]
     blobs = [blocks[:, j, :].tobytes() for j in (0, 1)]
-    osdmap = c.mon.osdmap
-    pgs = {o: osdmap.object_locator_to_pg(o, pool_id) for o in onames}
-    checked = check_shards(c, ecutil, GHObject, pgs, onames, blobs, sinfo,
-                           jer, "striper")
+    checked = sample_shards(c, ecutil, GHObject, jer, sinfo, pool_id, onames,
+                            blobs, "striper")
     return wall, (f"; {len(ents)} entities of {STRIPER_BYTES} bytes with "
                   f"the default Layout() (stripe unit {layout.stripe_unit}, "
                   f"count {layout.stripe_count}, object {layout.object_size}"
@@ -2728,6 +2752,263 @@ def class_calls(c, ecio) -> str:
             f"{journal!r}")
 
 
+def rbd_step(torch, np, c, ecutil, GHObject, jer, sinfo, io, pool_id,
+             gen) -> tuple:
+    """One RBD image at the reference's defaults (rbd_default_size,
+    rbd_default_order, feature layering) on the EC pool ``io``:
+    RBD_WRITTEN of it written in object-size writes (SERVICE_THREADS
+    writers), a snapshot, then two rounds of one RBD_PATCH overwrite an
+    object at seeded stripes and columns: the first clones each object
+    (copy on write, a barrier op: the full read-modify-write path), the
+    second goes to the delta lane; the head and the snapshot read back
+    whole, a shrink to RBD_SHRINK (the snapshot keeps what leaves the
+    head), and every shard of SHARD_SAMPLE seeded data objects equal to
+    the jerasure encode.  -> (write seconds, the rest of the line)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from ceph_tpu_torch.rbd import RBD, Image
+    from ceph_tpu_torch.rbd.image import _data_oid
+    RBD(io).create("vol")
+    img = Image(io, "vol")
+    osize = img.object_size
+    if (img.size(), osize, img.header["features"]) != (
+            c.conf["rbd_default_size"], 1 << c.conf["rbd_default_order"],
+            ["layering"]):
+        raise AssertionError(f"rbd: image {img.stat()} "
+                             f"{img.header['features']}")
+    n_objs = RBD_WRITTEN // osize
+    data = torch.randint(0, 256, (RBD_WRITTEN,), dtype=torch.uint8,
+                         device=DEV, generator=gen).cpu().numpy()
+    rng = np.random.default_rng(SEED + 13)
+    sw, su = sinfo.stripe_width, sinfo.chunk_size
+    rounds = [[j * osize + int(rng.integers(0, osize // sw)) * sw
+               + int(rng.integers(0, sinfo.k - RBD_PATCH // su + 1)) * su
+               for j in range(n_objs)] for _ in range(2)]
+    patches = rng.integers(0, 256, (2, n_objs, RBD_PATCH), dtype=np.uint8)
+    with ThreadPoolExecutor(SERVICE_THREADS) as ex:
+        ts = time.monotonic()
+        list(ex.map(lambda j: img.write(
+            j * osize, data[j * osize:(j + 1) * osize].tobytes()),
+            range(n_objs)))
+        wall = time.monotonic() - ts
+        ts = time.monotonic()
+        img.snap_create("s1")
+        snap_s = time.monotonic() - ts
+        snap = data.copy()
+        ow, delta = [], []
+        for r, offs in enumerate(rounds):
+            delta0 = sum(be.delta_rmw_ops for be in ec_backends(c))
+            ts = time.monotonic()
+            list(ex.map(lambda j: img.write(offs[j],
+                                            patches[r, j].tobytes()),
+                        range(n_objs)))
+            ow.append(time.monotonic() - ts)
+            delta.append(sum(be.delta_rmw_ops for be in ec_backends(c))
+                         - delta0)
+            for j in range(n_objs):
+                data[offs[j]:offs[j] + RBD_PATCH] = patches[r, j]
+        view = Image(io, "vol", snap_name="s1")
+        ts = time.monotonic()
+        head = list(ex.map(lambda j: img.read(j * osize, osize),
+                           range(n_objs)))
+        old = list(ex.map(lambda j: view.read(j * osize, osize),
+                          range(n_objs)))
+        rt = time.monotonic() - ts
+    for j in range(n_objs):
+        if head[j] != data[j * osize:(j + 1) * osize].tobytes():
+            raise AssertionError(f"rbd: head object {j} differs")
+        if old[j] != snap[j * osize:(j + 1) * osize].tobytes():
+            raise AssertionError(f"rbd: snapshot object {j} differs")
+    clones = [len(io.list_snaps(_data_oid("vol", j))["clones"])
+              for j in range(n_objs)]
+    if delta[1] != n_objs or clones != [1] * n_objs:
+        raise AssertionError(f"rbd overwrites: {delta} of {n_objs} on the "
+                             f"delta lane, clones {clones}")
+    ts = time.monotonic()
+    img.resize(RBD_SHRINK)
+    rs = time.monotonic() - ts
+    head = Image(io, "vol")
+    tail = head.read(RBD_SHRINK - osize, 2 * osize)
+    kept = Image(io, "vol", snap_name="s1").read(RBD_SHRINK, osize)
+    if head.size() != RBD_SHRINK or \
+            tail != data[RBD_SHRINK - osize:RBD_SHRINK].tobytes() or \
+            kept != snap[RBD_SHRINK:RBD_SHRINK + osize].tobytes():
+        raise AssertionError(f"rbd resize: size {head.size()}, tail or "
+                             f"snapshot differs")
+    sample = sorted(int(j) for j in rng.choice(
+        RBD_SHRINK // osize, SHARD_SAMPLE, replace=False))
+    checked = sample_shards(
+        c, ecutil, GHObject, jer, sinfo, pool_id,
+        [_data_oid("vol", j) for j in sample],
+        [data[j * osize:(j + 1) * osize].tobytes() for j in sample], "rbd")
+    return wall, (f"; image of {c.conf['rbd_default_size']} bytes, "
+                  f"{osize}-byte objects, "
+                  f"features {img.header['features']}, {n_objs} objects "
+                  f"written; snapshot in {snap_s:.4f} s; {n_objs} overwrites "
+                  f"of {RBD_PATCH} bytes cloning each object in {ow[0]:.4f} "
+                  f"s ({delta[0]} on the delta lane), {n_objs} more in "
+                  f"{ow[1]:.4f} s ({delta[1]} on the delta lane); head and "
+                  f"snapshot read back in {rt:.4f} s, every "
+                  f"byte as written; shrunk to {RBD_SHRINK} in {rs:.4f} s, "
+                  f"the snapshot keeps the rest; {checked} shards of "
+                  f"objects {sample} equal to the jerasure encode")
+
+
+def cephfs_step(torch, np, c, ecutil, GHObject, jer, sinfo, pool,
+                pool_id, gen) -> tuple:
+    """An MDSDaemon with metadata on a new replicated pool of size 3 and
+    data on the EC pool ``pool``, one MDSClient (the default layout):
+    FS_FILES files of FS_FILE_BYTES in FS_DIRS directories written
+    (SERVICE_THREADS writers) and read back, one directory renamed,
+    FS_UNLINKS files unlinked, the listing checked, and every shard of
+    SHARD_SAMPLE files' data objects equal to the jerasure encode.
+    -> (write seconds, the rest of the line)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from ceph_tpu_torch.client.striper import object_name
+    from ceph_tpu_torch.fs.filesystem import _data_soid
+    from ceph_tpu_torch.fs.mdsclient import MDSClient
+    from ceph_tpu_torch.mds import MDSDaemon
+    ts = time.monotonic()
+    c.create_pool("fsmeta", "replicated", size=3)
+    c.wait_for_clean(120)
+    mds = MDSDaemon(c.mon_addr, "fsmeta", pool, conf=c.conf).start()
+    boot = time.monotonic() - ts
+    try:
+        fs = MDSClient(c.rados(timeout=60), mds.my_addr, pool)
+        files = torch.randint(0, 256, (FS_FILES, FS_FILE_BYTES),
+                              dtype=torch.uint8, device=DEV,
+                              generator=gen).cpu().numpy()
+        dirs = [f"/d{i}" for i in range(FS_DIRS)]
+        paths = [f"{dirs[i % FS_DIRS]}/f{i:02d}.bin" for i in range(FS_FILES)]
+        for d in dirs:
+            fs.mkdir(d)
+        with ThreadPoolExecutor(SERVICE_THREADS) as ex:
+            ts = time.monotonic()
+            list(ex.map(lambda i: fs.write_file(paths[i], files[i].tobytes()),
+                        range(FS_FILES)))
+            wall = time.monotonic() - ts
+            ts = time.monotonic()
+            got = list(ex.map(fs.read_file, paths))
+            rt = time.monotonic() - ts
+        for i, g in enumerate(got):
+            if g != files[i].tobytes():
+                raise AssertionError(f"cephfs: {paths[i]} read back differs")
+        ts = time.monotonic()
+        moved = dirs[-1] + "r"
+        fs.rename(dirs[-1], moved)
+        paths = [p.replace(dirs[-1] + "/", moved + "/") for p in paths]
+        dirs[-1] = moved
+        for i in range(FS_UNLINKS):
+            fs.unlink(paths[i])
+        ns = time.monotonic() - ts
+        want = {d: sorted(p.rsplit("/", 1)[1] for p in paths[FS_UNLINKS:]
+                          if p.startswith(d + "/")) for d in dirs}
+        have = {d: sorted(e["name"] for e in fs.listdir(d)) for d in dirs}
+        top = sorted(e["name"] for e in fs.listdir("/"))
+        if have != want or top != sorted(d[1:] for d in dirs):
+            raise AssertionError(f"cephfs listing: {top} {have}")
+        if fs.read_file(paths[-1]) != files[-1].tobytes():
+            raise AssertionError("cephfs: a file differs after the rename")
+        rng = np.random.default_rng(SEED + 14)
+        sample = sorted(int(i) for i in rng.choice(
+            range(FS_UNLINKS, FS_FILES), SHARD_SAMPLE, replace=False))
+        onames = [object_name(_data_soid(fs.stat(paths[i])["ino"]), 0)
+                  for i in sample]
+        checked = sample_shards(c, ecutil, GHObject, jer, sinfo, pool_id,
+                                onames, [files[i].tobytes() for i in sample],
+                                "cephfs")
+        applied = mds._applied
+    finally:
+        mds.shutdown()
+    return wall, (f"; metadata pool fsmeta of size 3 and the MDS up in "
+                  f"{boot:.4f} s; {FS_FILES} files of {FS_FILE_BYTES} bytes in"
+                  f" {FS_DIRS} directories, read back in {rt:.4f} s, every "
+                  f"byte as written; a directory renamed and {FS_UNLINKS} "
+                  f"files unlinked in {ns:.4f} s, the listing as expected; "
+                  f"{applied} mutations journaled; {checked} shards of "
+                  f"{len(sample)} files' data objects equal to the jerasure "
+                  f"encode")
+
+
+def rgw_step(torch, c, gen) -> tuple:
+    """An RGWServer on loopback over a new replicated pool of size 3:
+    RGW_PUTS S3 PUTs of RGW_OBJ_BYTES over HTTP (SERVICE_THREADS
+    clients), each etag the md5 of its bytes; GETs of each and one
+    ranged GET, byte-equal; one multipart upload of RGW_PARTS parts of
+    RGW_PART_BYTES whose etag is the S3 multipart md5.  -> (PUT
+    seconds, the rest of the line)."""
+    import hashlib
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from ceph_tpu_torch.rgw.server import RGWServer
+    ts = time.monotonic()
+    c.create_pool("rgwpool", "replicated", size=3)
+    c.wait_for_clean(120)
+    srv = RGWServer(c.rados(timeout=60).open_ioctx("rgwpool")).start()
+    boot = time.monotonic() - ts
+    try:
+        host, port = srv.addr
+        base = f"http://{host}:{port}"
+
+        def req(method, path, data=None, headers=None):
+            r = urllib.request.Request(base + path, data=data, method=method,
+                                       headers=headers or {})
+            with urllib.request.urlopen(r, timeout=600) as resp:
+                return resp.status, dict(resp.headers), resp.read()
+        req("PUT", "/smoke")
+        objs = torch.randint(0, 256, (RGW_PUTS, RGW_OBJ_BYTES),
+                             dtype=torch.uint8, device=DEV,
+                             generator=gen).cpu().numpy()
+        keys = [f"/smoke/obj/{i:02d}.bin" for i in range(RGW_PUTS)]
+        with ThreadPoolExecutor(SERVICE_THREADS) as ex:
+            ts = time.monotonic()
+            puts = list(ex.map(lambda i: req("PUT", keys[i],
+                                             objs[i].tobytes()),
+                               range(RGW_PUTS)))
+            wall = time.monotonic() - ts
+            ts = time.monotonic()
+            gets = list(ex.map(lambda k: req("GET", k), keys))
+            rt = time.monotonic() - ts
+        for i, ((_, ph, _), (st, gh, body)) in enumerate(zip(puts, gets)):
+            md5 = hashlib.md5(objs[i].tobytes()).hexdigest()
+            if ph["ETag"].strip('"') != md5 or gh["ETag"].strip('"') != md5 \
+                    or st != 200 or body != objs[i].tobytes():
+                raise AssertionError(f"rgw: {keys[i]} etag or bytes differ")
+        lo, hi = RGW_RANGE
+        st, _, body = req("GET", keys[0], headers={"Range": f"bytes={lo}-{hi}"})
+        if st != 206 or body != objs[0][lo:hi + 1].tobytes():
+            raise AssertionError(f"rgw: ranged GET {st}, {len(body)} bytes")
+        parts = torch.randint(0, 256, (RGW_PARTS, RGW_PART_BYTES),
+                              dtype=torch.uint8, device=DEV,
+                              generator=gen).cpu().numpy()
+        ts = time.monotonic()
+        _, _, xml = req("POST", "/smoke/big.bin?uploads", b"")
+        uid = xml.decode().split("<UploadId>")[1].split("<")[0]
+        etags = [req("PUT", f"/smoke/big.bin?uploadId={uid}&partNumber={n}",
+                     parts[n - 1].tobytes())[1]["ETag"].strip('"')
+                 for n in range(1, RGW_PARTS + 1)]
+        cx = "".join(f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag>"
+                     f"</Part>" for n, e in enumerate(etags, 1))
+        _, _, done = req("POST", f"/smoke/big.bin?uploadId={uid}",
+                         f"<CompleteMultipartUpload>{cx}"
+                         f"</CompleteMultipartUpload>".encode())
+        mp = time.monotonic() - ts
+        want = hashlib.md5(b"".join(hashlib.md5(p.tobytes()).digest()
+                                    for p in parts)).hexdigest() \
+            + f"-{RGW_PARTS}"
+        _, gh, body = req("GET", "/smoke/big.bin")
+        if want not in done.decode() or gh["ETag"].strip('"') != want or \
+                body != parts.tobytes():
+            raise AssertionError(f"rgw multipart: etag {gh['ETag']} (want "
+                                 f"{want}) or bytes differ")
+    finally:
+        srv.shutdown()
+    return wall, (f"; pool rgwpool of size 3 and the gateway up in "
+                  f"{boot:.4f} s; {RGW_PUTS} GETs in {rt:.4f} s and a ranged "
+                  f"GET of {hi - lo + 1} bytes, every byte and etag as "
+                  f"written; multipart of {RGW_PARTS} x {RGW_PART_BYTES} "
+                  f"bytes in {mp:.4f} s, etag {want}")
+
+
 def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
                  n_objs: int, services: bool = False, **backend) -> dict:
     """Drive the port's Cluster: a mon, CL_OSDS OSDs (``backend`` is
@@ -2749,9 +3030,12 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
     the OSD: after the writes the manager's prometheus scrape, held
     against the OSDs' own perf dumps (mgr_scrape); after the rebuild the
     tuner module's decisions; after the deep scrub a striper step on the
-    k=8 m=4 pool (striper_step, which must launch B1) and class calls on
-    a replicated pool (class_calls).  Returns the launches by step,
-    keyed ``{prefix}_{step}``."""
+    k=8 m=4 pool (striper_step, which must launch B1), class calls on a
+    replicated pool (class_calls), and the client services: an RBD image
+    (rbd_step) and CephFS through an MDS (cephfs_step) on the k=8 m=4
+    pool, each of which must launch B1, and the RGW gateway over HTTP on
+    a replicated pool (rgw_step), which must make no batcher call.
+    Returns the launches by step, keyed ``{prefix}_{step}``."""
     from ceph_tpu_torch.cluster import Cluster, test_config
     from ceph_tpu_torch.ops import crclinear
     from ceph_tpu_torch.osd.batcher import EncodeBatcher
@@ -2825,8 +3109,12 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
             """Run one step with the launch counts zeroed just before it;
             ``fn`` returns the seconds of the step's own timed part and
             the rest of its line.  Print the line; fail on any counted
-            fault or a step without a launch of ``kernel``."""
+            fault or a step without a launch of ``kernel``.  A step with
+            ``kernel`` None runs on a replicated pool: it must make no
+            batcher call and launch no packet kernel, and its B1
+            launches are the BlueStores' checksum folds on the card."""
             lanes0 = cluster_lanes(c)
+            folds0 = sum(dev for dev, _ in csum_report(c).values())
             cpu0, proc0 = thread_cpu(), os.times()
             watch.start()
             counts.reset()
@@ -2840,6 +3128,7 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
             span = time.monotonic() - ts
             busy = (proc1.user + proc1.system) - (proc0.user + proc0.system)
             d = lane_delta(lanes0, cluster_lanes(c))
+            folds = sum(dev for dev, _ in csum_report(c).values()) - folds0
             faults = cluster_faults(c, crclinear, EncodeBatcher)
             rate = (f"{nb / 2**30:.3f} GiB in {wall:.4f} s host to host = "
                     f"{nb / 2**30 / wall:.3f} GiB/s" if nb else
@@ -2849,14 +3138,21 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
                   f"{launches['B3']}; batcher calls/requests summed over "
                   f"the OSDs: encode {d['calls']}/{d['reqs']}, decode "
                   f"{d['dec_calls']}/{d['dec_reqs']}, delta "
-                  f"{d['delta_calls']}/{d['delta_reqs']}{extra}")
+                  f"{d['delta_calls']}/{d['delta_reqs']}; BlueStore checksum "
+                  f"folds on the card {folds}{extra}")
             print(f"{prefix} {name} CPU: the process used {busy:.2f} s in "
                   f"the step's {span:.4f} s ({busy / span:.2f} cores); by "
                   f"thread family, s: {cpu_split(cpu0, cpu1)}")
             print(f"{prefix} {name} threads: {seen}")
             if any(faults.values()):
                 raise AssertionError(f"{prefix} {name}: {faults}")
-            if launches[kernel] < 1:
+            if kernel is None:
+                lanes = d["calls"] + d["dec_calls"] + d["delta_calls"]
+                if lanes or launches["B2"] or launches["B3"] or \
+                        (launches["B1"] and not folds):
+                    raise AssertionError(f"{prefix} {name}: {lanes} batcher "
+                                         f"calls, launches {launches}")
+            elif launches[kernel] < 1:
                 raise AssertionError(f"{prefix} {name}: {kernel} did not "
                                      f"launch")
             out[f"{prefix}_{key}"] = launches
@@ -3018,6 +3314,14 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
                 c, ecutil, GHObject, jer, sinfo, io, pool_id, ents,
                 patches), ents.nbytes)
             print(f"{prefix} classes: {class_calls(c, io)}")
+            step("rbd", "rbd", lambda: rbd_step(
+                torch, np, c, ecutil, GHObject, jer, sinfo, io, pool_id,
+                gen), RBD_WRITTEN)
+            step("cephfs", "cephfs", lambda: cephfs_step(
+                torch, np, c, ecutil, GHObject, jer, sinfo, "ecpool",
+                pool_id, gen), FS_FILES * FS_FILE_BYTES)
+            step("rgw", "rgw", lambda: rgw_step(torch, c, gen),
+                 RGW_PUTS * RGW_OBJ_BYTES, kernel=None)
 
         # 6. a cauchy_good k=8 m=4 pool at packetsize 2048: B2's lane
         pprofile = {"k": str(K), "m": str(M), "technique": "cauchy_good",
@@ -3067,7 +3371,7 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
     return out
 
 
-# phase -> the kernel its path must launch
+# phase -> the kernel its path must launch (None: no codec kernel)
 PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "ecutil": "B1", "pkt_encode": "B2",
                 "pkt_decode_device": "B2", "pkt_decode": "B2",
@@ -3093,7 +3397,10 @@ PHASE_KERNEL.update({f"{prefix}_{step}": "B1"
                      for prefix in ("cluster", "crimson")
                      for step in ("write", "overwrite", "degraded",
                                   "rebuild", "scrub")})
-PHASE_KERNEL["crimson_striper"] = "B1"
+PHASE_KERNEL.update({"crimson_striper": "B1", "crimson_rbd": "B1",
+                     "crimson_cephfs": "B1",
+                     # a replicated pool: no codec kernel (rgw_step)
+                     "crimson_rgw": None})
 KERNELS = {
     "B1": ("gf8_bitplane_apply (B1)", "ceph_tpu_torch/csrc/gf8_bitplane.cu",
            "ceph_tpu/ops/jax_engine.py:382",
@@ -3164,7 +3471,7 @@ def main() -> int:
                     **plug["launches"], **bat, "store": store["launches"],
                     **ecb["launches"], **cri, **clu}
         for phase, n in launches.items():
-            if n[PHASE_KERNEL[phase]] < 1:
+            if PHASE_KERNEL[phase] and n[PHASE_KERNEL[phase]] < 1:
                 raise AssertionError(
                     f"{PHASE_KERNEL[phase]} not launched in phase {phase}")
         print(f"launches by phase: {json.dumps(launches)}")

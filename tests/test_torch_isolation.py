@@ -224,3 +224,37 @@ def test_importlib_name_check_sees_the_reference_loader(tmp_path):
     src.write_text(open(ref).read())
     names = [t for _, t in importlib_names(str(src))]
     assert any(_names_ceph_tpu(t) for t in names), names
+
+
+# Modules of the JAX package that the port does not hold, as paths
+# under the package.  The list only shrinks: the client services
+# (rbd/, rgw/, fs/, mds/) left it when they were ported; the device
+# mesh and the command-line tools remain.
+UNPORTED_MODULES = frozenset(
+    ["parallel/__init__.py", "parallel/mesh.py"]
+    + [f"tools/{m}.py" for m in (
+        "__init__", "bench_sweep", "ceph_cli", "cephadm", "cephfs_cli",
+        "common", "crushtool", "ec_benchmark", "ec_non_regression",
+        "ec_tool", "objectstore_tool", "osdmaptool", "rados_cli",
+        "rbd_cli", "thrash", "vstart")])
+# the JAX package's modules that the port replaces with its own
+REPLACED_MODULES = {"ops/jax_engine.py": "ops/torch_engine.py",
+                    "ec/plugins/tpu.py": "ec/plugins/gpu.py"}
+
+
+def _py_files(root):
+    return {os.path.relpath(os.path.join(d, f), root).replace(os.sep, "/")
+            for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")}
+
+
+def test_unported_modules_are_the_frozen_list():
+    """The JAX package's modules that the port lacks are exactly the
+    unported list and the replaced modules, each replacement present."""
+    ref = _py_files(os.path.join(REPO, "ceph_tpu"))
+    port = _py_files(PKG)
+    assert ref - port == UNPORTED_MODULES | set(REPLACED_MODULES)
+    assert set(REPLACED_MODULES.values()) <= port
+    assert {m.split("/")[0] for m in UNPORTED_MODULES} == \
+        {"parallel", "tools"}
+    for pkg in ("rbd", "rgw", "fs", "mds"):
+        assert {m for m in ref if m.startswith(pkg + "/")} <= port, pkg

@@ -238,8 +238,178 @@ def test_paxos_uncommitted_pn_highest_wins():
             else (winning, losing)
         q._handle_ack(first)
         q._handle_ack(second)
+        # three of four acked: the candidate wins when the election
+        # period ends (reference end_election_period)
+        assert not q.is_leader()
+        q._election_started = time.monotonic() - 10.0
+        q.tick()
         assert q.is_leader()
         assert mon.applied == [(6, {"who": "winner"})], order
+
+
+class _ElectionNet:
+    """Three electors (the port's QuorumService over stub monitors)
+    whose messages wait in one queue until the test delivers them, so a
+    message order is replayed exactly.  Records every victory as
+    (election epoch, rank)."""
+
+    def __init__(self, n=3, lc=7):
+        import threading
+
+        from ceph_tpu_torch.mon.paxos import QuorumService
+        self.queue = []                  # (src, dst, msg), oldest first
+        self.victories = []
+        net = self
+
+        class Conn:
+            def __init__(self, src, dst):
+                self.src, self.dst = src, dst
+
+            def send_message(self, msg):
+                net.queue.append((self.src, self.dst, msg))
+
+        class Msgr:
+            def __init__(self, rank):
+                self.rank = rank
+
+            def connect_to(self, addr, peer_name=None):
+                return Conn(self.rank, int(peer_name.split(".")[1]))
+
+        class Mon:
+            def __init__(self, rank):
+                self.name = f"mon.{rank}"
+                self.lock = threading.RLock()
+                self.osdmap = type("M", (), {"epoch": lc})()
+                self.conf = {"mon_lease": 5.0, "mon_election_timeout": 2.0,
+                             "mon_clock_drift_allowed": 0.05,
+                             "paxos_propose_interval": 0.05}
+                self.msgr = Msgr(rank)
+                self.quorum = None
+
+            def on_quorum_formed(self):
+                net.victories.append((self.quorum.election_epoch,
+                                      self.quorum.rank))
+
+        self.mons = [Mon(r) for r in range(n)]
+        monmap = [("127.0.0.1", 6789 + r) for r in range(n)]
+        for r, m in enumerate(self.mons):
+            m.quorum = QuorumService(m, r, monmap)
+
+    def q(self, rank):
+        return self.mons[rank].quorum
+
+    def deliver(self, src, dst, op):
+        """Hand the oldest queued ``op`` from src to dst to its
+        elector."""
+        for i, (s, d, msg) in enumerate(self.queue):
+            if (s, d, msg.op) == (src, dst, op):
+                del self.queue[i]
+                self.q(dst).handle(msg)
+                return msg
+        raise AssertionError(f"no {op} queued from {src} to {dst}: "
+                             f"{[(s, d, m.op) for s, d, m in self.queue]}")
+
+    def drain(self, drop=()):
+        while self.queue:
+            s, d, msg = self.queue.pop(0)
+            if d not in drop:
+                self.q(d).handle(msg)
+
+    def one_leader_per_epoch(self):
+        by_epoch = {}
+        for epoch, rank in self.victories:
+            by_epoch.setdefault(epoch, set()).add(rank)
+        return all(len(r) == 1 for r in by_epoch.values()), by_epoch
+
+
+def test_elector_one_leader_per_epoch():
+    """Two candidates in one round and a monitor that acks both: mon.1
+    proposes, mon.2 acks it; mon.0 (better: same data, lower rank)
+    proposes, and mon.2 acks it too.  Victory at the first majority
+    crowned both in one epoch.  mon.1 must wait (2 of 3 acks), defer to
+    mon.0's propose, and mon.0 win with every ack; the deferred mon.1
+    ignores late acks (reference ElectionLogic receive_ack,
+    propose_classic_handler)."""
+    net = _ElectionNet()
+    net.q(1).start_election()
+    net.q(0).start_election()
+    net.deliver(1, 2, "propose")         # mon.2 defers to mon.1
+    net.deliver(2, 1, "ack")             # mon.1: a majority, not everyone
+    net.deliver(0, 2, "propose")         # mon.2 defers to the better mon.0
+    net.deliver(2, 0, "ack")
+    net.deliver(0, 1, "propose")         # mon.1 defers to mon.0
+    net.deliver(1, 0, "ack")             # mon.0: every monitor acked
+    net.drain()
+    ok, by_epoch = net.one_leader_per_epoch()
+    assert ok, by_epoch
+    assert net.victories == [(2, 0)], net.victories
+    assert [net.q(r).leader for r in range(3)] == [0, 0, 0]
+    assert {net.q(r).election_epoch for r in range(3)} == {2}
+    assert net.q(0).quorum == {0, 1, 2}
+
+
+def test_elector_acks_only_a_better_candidate_in_one_round():
+    """A monitor that acked mon.0 in a round ignores mon.1's propose of
+    the same round (worse than mon.0): no second ack goes out."""
+    net = _ElectionNet()
+    net.q(0).start_election()
+    net.q(1).start_election()
+    net.deliver(0, 2, "propose")
+    queued = len(net.queue)
+    net.deliver(1, 2, "propose")
+    assert len(net.queue) == queued - 1  # nothing sent in reply
+    assert net.q(2)._deferred_to == 0
+
+
+def test_elector_majority_wins_when_the_period_ends():
+    """With mon.2 silent, mon.0 holds 2 of 3 acks: it does not win on
+    the ack, and wins at the end of the election period; a candidate
+    that deferred does not win on its stale majority."""
+    net = _ElectionNet()
+    net.q(0).start_election()
+    net.deliver(0, 1, "propose")
+    net.deliver(1, 0, "ack")
+    assert net.victories == [] and net.q(0).leader is None
+    net.q(0)._election_started -= 10.0
+    net.q(0).tick()
+    assert net.victories == [(2, 0)]
+    net.drain(drop={2})
+    assert net.q(1).leader == 0
+    # a deferred candidate: mon.1 proposes, mon.2 acks it, then mon.1
+    # hears mon.0's propose and defers; its period ends: no victory
+    net = _ElectionNet()
+    net.q(1).start_election()
+    net.deliver(1, 2, "propose")
+    net.deliver(2, 1, "ack")
+    net.q(0).start_election()
+    net.deliver(0, 1, "propose")
+    assert net.q(1)._deferred_to == 0
+    net.q(1)._election_started -= 2.5
+    net.q(1).tick()
+    assert net.victories == [] and net.q(1).leader is None
+
+
+def test_broadcast_gives_each_monitor_its_own_message():
+    """A connection stamps its sequence number on the message object it
+    sends: one object queued for two monitors left the second peer with
+    the first connection's numbers, and it then dropped its own
+    session's later messages (a sync a lagging monitor asked for) as
+    duplicates.  Every broadcast (propose, victory, lease) hands each
+    peer its own unstamped copy with the same content."""
+    net = _ElectionNet()
+    net.q(0).start_election()
+    net.deliver(0, 1, "propose")
+    net.deliver(0, 2, "propose")
+    net.deliver(1, 0, "ack")
+    net.deliver(2, 0, "ack")             # every ack: victory broadcast
+    net.q(0)._last_lease_tx = 0.0
+    net.q(0).tick()                      # lease broadcast
+    for op in ("victory", "lease"):
+        sent = {d: m for s, d, m in net.queue if s == 0 and m.op == op}
+        assert set(sent) == {1, 2}, op
+        assert sent[1] is not sent[2], op
+        assert sent[1].seq == sent[2].seq == 0, op
+        assert vars(sent[1]) == vars(sent[2]), op
 
 
 def test_mon_restart_resumes_from_store(tmp_path):
