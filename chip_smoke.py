@@ -80,6 +80,23 @@ Phases, each of which must pass or the script exits non-zero:
      host encode of the jerasure plugin (or of the same LRC or CLAY code
      over it); any twin route, device error or counted host fallback
      fails the phase;
+  7b. drive the port's tools (ceph_tpu_torch/tools) through the entry
+     points a user runs: ec_benchmark's main(argv) at k=8 m=4
+     reed_sol_van encode and 4-erasure decode of 64 MiB (B1) and
+     cauchy_good k=10 m=4 encode at packetsize 2048 (B2) and 1000 (B3),
+     each `seconds\tKiB` line printed with bench.sh's GB/s, and the
+     tool's payload encoded through `gpu` equal to jerasure's; the
+     corpus check (ec_non_regression --check, 9 configs, the `gpu` entry
+     reading tpu_k=8_m=4); ec_tool encode and decode of a 16 MiB file
+     with 4 chunks deleted; bench_sweep of the `gpu` plugin, 12 rows;
+     then `python -m ceph_tpu_torch.tools.vstart -n 3 --ec-pool --mgr
+     --rgw` in its own process (output in chiprun_out/vstart.log),
+     driven over TCP by the ceph, rados, rbd and cephfs CLIs' main(argv)
+     (put/get of 16 objects of 4 MiB on its `gpu` k=2 m=1 pool, rados
+     bench write and seq, rbd import/snapshot/clone/export on a
+     replicated pool, cephfs put/get with data on the EC pool), its OSDs'
+     perf dumps showing encode calls and no twin route or device error,
+     and its exit 0 on SIGTERM;
   8. drive the port's daemons (ceph_tpu_torch/cluster.py), twice: the k=8
      m=4 shapes warmed on the shared backend first, then a mon, 13 OSDs
      on RAM BlueStores and a client over the loopback-TCP messenger,
@@ -124,10 +141,10 @@ Phases, each of which must pass or the script exits non-zero:
      byte-code phases, every step of the plugins phase on the card, the
      batcher's encode, decode and delta lanes, the store, the
      ECBackend's writes, overwrites, degraded reads, recovery and scrub,
-     the LRC and CLAY PGs' writes, degraded reads and recoveries, and
-     every step of both cluster phases and the crimson striper step, B2
-     on the packetsize-2048
-     phases, the corpus, the batcher's packet lane, the ECBackend's
+     the LRC and CLAY PGs' writes, degraded reads and recoveries, the
+     tools phase's ec_benchmark k=8 m=4 runs, corpus, ec_tool and sweep,
+     and every step of both cluster phases and the crimson striper step,
+     B2 on the packetsize-2048 phases (the tools phase's too), the corpus, the batcher's packet lane, the ECBackend's
      cauchy_good pool and the clusters' cauchy_good pools, B3 on the
      packetsize-1000 phases;
  10. time each kernel (median of CUDA-event-timed launches) beside its
@@ -146,6 +163,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -249,17 +267,6 @@ def card() -> str:
     except OSError as e:
         return f"not read: {e}"
     return smi.stdout.strip() or smi.stderr.strip()
-
-
-def corpus_payload(size: int) -> bytes:
-    """The corpus payload: the same linear congruential bytes the corpus
-    vectors were written from."""
-    out = bytearray()
-    x = 0x12345678
-    while len(out) < size:
-        x = (1103515245 * x + 12345) & 0x7FFFFFFF
-        out.append(x & 0xFF)
-    return bytes(out)
 
 
 def build_all(kernels) -> float:
@@ -636,6 +643,7 @@ def check_corpus(registry, name: str, plugin: str = "gpu",
     (the JAX package's sweep, tools/ec_non_regression.py).  Returns the
     losses decoded and the losses tried."""
     import itertools
+    from ceph_tpu_torch.tools import ec_non_regression
     d = os.path.join(HERE, "corpus", name)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -647,8 +655,12 @@ def check_corpus(registry, name: str, plugin: str = "gpu",
     for i in range(n):
         with open(os.path.join(d, f"chunk.{i}"), "rb") as f:
             stored[i] = f.read()
-    fresh = codec.encode(set(range(n)),
-                         corpus_payload(manifest["payload_size"]))
+    payload = ec_non_regression.payload()
+    if len(payload) != manifest["payload_size"]:
+        raise AssertionError(f"corpus {name}: payload of {len(payload)} "
+                             f"bytes, the manifest says "
+                             f"{manifest['payload_size']}")
+    fresh = codec.encode(set(range(n)), payload)
     if any(fresh[i] != stored[i] for i in range(n)):
         raise AssertionError(f"corpus {name}: encode != stored chunks")
     losses = [e for r in (1, 2) for e in itertools.combinations(range(n), r)]
@@ -2461,10 +2473,11 @@ STRIPER_BYTES = 16 << 20   # one object set of the default Layout() each
 STRIPER_PATCH = (70_000, 5_000)   # (offset, length) of each overwrite
 # the client services above the striper, on the crimson cluster
 SERVICE_THREADS = 8        # client threads of each service step
-RBD_WRITTEN = 256 << 20    # of the 1 GiB default image: 64 objects of 4 MiB
+RBD_WRITTEN = 128 << 20    # of the 1 GiB default image: 32 objects of 4 MiB
 RBD_PATCH = 8 << 10        # an overwrite, two 4 KiB columns of one stripe:
                            # two rounds after the snapshot, one an object
-RBD_SHRINK = 192 << 20     # the resize: objects 48-63 leave the head
+RBD_SHRINK = 96 << 20      # the resize: objects 24-31 leave the head
+RBD_SAMPLE = 4             # image objects whose every shard is checked
 SHARD_SAMPLE = 8           # data objects whose every shard is checked
 FS_DIRS = 4
 FS_FILES = 32              # files of 4 MiB: 128 MiB, the default layout
@@ -2762,7 +2775,7 @@ def rbd_step(torch, np, c, ecutil, GHObject, jer, sinfo, io, pool_id,
     (copy on write, a barrier op: the full read-modify-write path), the
     second goes to the delta lane; the head and the snapshot read back
     whole, a shrink to RBD_SHRINK (the snapshot keeps what leaves the
-    head), and every shard of SHARD_SAMPLE seeded data objects equal to
+    head), and every shard of RBD_SAMPLE seeded data objects equal to
     the jerasure encode.  -> (write seconds, the rest of the line)."""
     from concurrent.futures import ThreadPoolExecutor
     from ceph_tpu_torch.rbd import RBD, Image
@@ -2835,7 +2848,7 @@ def rbd_step(torch, np, c, ecutil, GHObject, jer, sinfo, io, pool_id,
         raise AssertionError(f"rbd resize: size {head.size()}, tail or "
                              f"snapshot differs")
     sample = sorted(int(j) for j in rng.choice(
-        RBD_SHRINK // osize, SHARD_SAMPLE, replace=False))
+        RBD_SHRINK // osize, RBD_SAMPLE, replace=False))
     checked = sample_shards(
         c, ecutil, GHObject, jer, sinfo, pool_id,
         [_data_oid("vol", j) for j in sample],
@@ -3371,6 +3384,315 @@ def cluster_path(torch, np, registry, ecutil, counts, prefix: str,
     return out
 
 
+# tools phase: the port's tools through the entry points a user runs
+# (ceph_tpu_torch/tools): ec_benchmark's arguments by sub-phase, with
+# the kernel each must launch
+BENCH_RUNS = (
+    ("ec_benchmark_encode", "B1", ["-p", "gpu", "-P",
+                                   "k=8,m=4,technique=reed_sol_van", "-S",
+                                   "67108864", "-i", "8", "-w", "encode"]),
+    ("ec_benchmark_decode", "B1", ["-p", "gpu", "-P",
+                                   "k=8,m=4,technique=reed_sol_van", "-S",
+                                   "67108864", "-i", "8", "-w", "decode",
+                                   "-e", "4"]),
+    ("ec_benchmark_packet", "B2", ["-p", "gpu", "-P",
+                                   "k=10,m=4,technique=cauchy_good,"
+                                   "packetsize=2048", "-S", "67108864",
+                                   "-i", "4", "-w", "encode"]),
+    ("ec_benchmark_ragged", "B3", ["-p", "gpu", "-P",
+                                   "k=10,m=4,technique=cauchy_good,"
+                                   "packetsize=1000", "-S", "67108864",
+                                   "-i", "4", "-w", "encode"]))
+TOOL_FILE_BYTES = 16 << 20   # the file ec_tool encodes and decodes
+SWEEP_ARGS = ["--plugins", "gpu", "--workloads", "encode,decode", "--size",
+              "16777216", "-i", "3"]
+VSTART_OSDS = 3
+VSTART_UP_S = 180            # the monitor address must appear by then
+VSTART_EXIT_S = 60           # and the process end this long after SIGTERM
+VSTART_OBJS = 16             # rados put/get of 4 MiB objects
+VSTART_OBJ_BYTES = 4 << 20
+VSTART_BENCH_S = 5           # rados bench write, then seq
+VSTART_IMAGE_BYTES = 16 << 20    # rbd import on a replicated pool
+VSTART_FILE_BYTES = 4 << 20      # cephfs put on the EC pool
+
+
+def tool_out(main, argv) -> tuple:
+    """(return code, standard output) of one tool's ``main(argv)``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def vstart_path(np, gen, scratch: str, logs: str) -> str:
+    """``python -m ceph_tpu_torch.tools.vstart -n VSTART_OSDS --ec-pool
+    --mgr --rgw`` as a process of its own (its output into ``logs``),
+    then, through the CLIs' ``main(argv)`` over TCP: ``ceph status``,
+    ``allow_ec_overwrites`` on its k=2 m=1 `gpu` pool, rados put and get
+    of VSTART_OBJS objects (read back equal), ``rados bench`` write and
+    seq with no error, rbd import, snapshot, clone and export on a
+    replicated pool (equal), cephfs put and get with data on the EC pool
+    (equal), and ``ceph tell osd.N perf dump`` of every OSD: the
+    batchers' encode calls above 0, no twin route and no device error,
+    the evidence that B1 ran in vstart's process.  SIGTERM must end it
+    with exit code 0 within VSTART_EXIT_S.  -> the step's line."""
+    from ceph_tpu_torch.tools import (ceph_cli, cephfs_cli, rados_cli,
+                                      rbd_cli)
+    addr_file = os.path.join(scratch, "mon.addr")
+    log_path = os.path.join(logs, "vstart.log")
+    # the batchers' route pinned to the card, by the config's own
+    # environment override: a twin route must show as one, not as a
+    # learned crossover
+    env = dict(os.environ, PYTHONPATH=HERE, CEPH_TPU_EC_TPU_FALLBACK_CPU="0")
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.vstart", "-n",
+             str(VSTART_OSDS), "--ec-pool", "--mgr", "--rgw", "--out-conf",
+             addr_file], cwd=HERE, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        while not (os.path.exists(addr_file)
+                   and open(addr_file).read().strip()):
+            if proc.poll() is not None:
+                raise AssertionError(f"vstart exited {proc.returncode} "
+                                     f"before it came up (see {log_path})")
+            if time.monotonic() - t0 > VSTART_UP_S:
+                raise AssertionError(f"vstart not up in {VSTART_UP_S} s")
+            time.sleep(0.2)
+        up_s = time.monotonic() - t0
+        mon = open(addr_file).read().strip()
+
+        def ceph(*words):
+            rc, out = tool_out(ceph_cli.main, ["-m", mon, "--format", "json",
+                                               *words])
+            if rc != 0:
+                raise AssertionError(f"ceph {' '.join(words)}: rc {rc}")
+            return json.loads(out) if out.strip() else {}
+
+        def tool(main, *argv):
+            rc, out = tool_out(main, ["-m", mon, *argv])
+            if rc != 0:
+                raise AssertionError(f"{main.__module__} {argv}: rc {rc}")
+            return out
+
+        st = ceph("status")
+        if st["osdmap"]["num_up_osds"] != VSTART_OSDS:
+            raise AssertionError(f"vstart status: {st['osdmap']}")
+        prof = ceph("osd", "erasure-code-profile", "get", "gpuprof")
+        if prof.get("plugin") != "gpu" or "device" in prof:
+            raise AssertionError(f"vstart profile: {prof}")
+        ceph("osd", "pool", "set", "ecpool", "allow_ec_overwrites", "true")
+        ceph("osd", "pool", "create", "rbdp", "8", "replicated", "--size",
+             str(VSTART_OSDS))
+        ceph("osd", "pool", "create", "fsmeta", "8", "replicated", "--size",
+             str(VSTART_OSDS))
+        blobs = [np.asarray(gen.integers(0, 256, VSTART_OBJ_BYTES,
+                                         dtype=np.uint8)).tobytes()
+                 for _ in range(VSTART_OBJS)]
+        ts = time.monotonic()
+        for i, blob in enumerate(blobs):
+            path = os.path.join(scratch, f"put.{i}")
+            with open(path, "wb") as f:
+                f.write(blob)
+            tool(rados_cli.main, "-p", "ecpool", "put", f"obj.{i}", path)
+        put_s = time.monotonic() - ts
+        ts = time.monotonic()
+        for i, blob in enumerate(blobs):
+            path = os.path.join(scratch, f"get.{i}")
+            tool(rados_cli.main, "-p", "ecpool", "get", f"obj.{i}", path)
+            with open(path, "rb") as f:
+                if f.read() != blob:
+                    raise AssertionError(f"rados get obj.{i} differs")
+        get_s = time.monotonic() - ts
+        bench = {}
+        for mode in ("write", "seq"):
+            bench[mode] = json.loads(tool(
+                rados_cli.main, "-p", "ecpool", "bench", str(VSTART_BENCH_S),
+                mode, *(["--no-cleanup"] if mode == "write" else []),
+                "--format", "json"))
+            if bench[mode]["errors"] or not bench[mode]["total_ops"]:
+                raise AssertionError(f"rados bench {mode}: {bench[mode]}")
+        image = os.path.join(scratch, "disk.img")
+        with open(image, "wb") as f:
+            f.write(np.asarray(gen.integers(0, 256, VSTART_IMAGE_BYTES,
+                                            dtype=np.uint8)).tobytes())
+        ts = time.monotonic()
+        tool(rbd_cli.main, "-p", "rbdp", "import", image, "img")
+        tool(rbd_cli.main, "-p", "rbdp", "snap", "create", "img@s1")
+        tool(rbd_cli.main, "-p", "rbdp", "clone", "img@s1", "child")
+        tool(rbd_cli.main, "-p", "rbdp", "export", "child", image + ".out")
+        rbd_s = time.monotonic() - ts
+        with open(image, "rb") as a, open(image + ".out", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("rbd export of the clone != import")
+        local = os.path.join(scratch, "file.bin")
+        with open(local, "wb") as f:
+            f.write(np.asarray(gen.integers(0, 256, VSTART_FILE_BYTES,
+                                            dtype=np.uint8)).tobytes())
+        fs = ["--meta-pool", "fsmeta", "--data-pool", "ecpool"]
+        ts = time.monotonic()
+        tool(cephfs_cli.main, *fs, "mkdir", "/tools")
+        tool(cephfs_cli.main, *fs, "put", local, "/tools/file.bin")
+        tool(cephfs_cli.main, *fs, "get", "/tools/file.bin", local + ".out")
+        fs_s = time.monotonic() - ts
+        with open(local, "rb") as a, open(local + ".out", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("cephfs get != put")
+        calls = twins = errors = 0
+        for osd in range(VSTART_OSDS):
+            d = ceph("tell", f"osd.{osd}", "perf", "dump")
+            calls += d["osd"]["ec_batch_calls"]
+            twins += d["ec_batcher"]["cpu_reqs"]
+            errors += d["ec_batcher"]["device_errors"]
+        if calls < 1 or twins or errors:
+            raise AssertionError(f"vstart OSDs' perf dumps: encode calls "
+                                 f"{calls}, twin routes {twins}, device "
+                                 f"errors {errors}")
+    finally:
+        ts = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(VSTART_EXIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"vstart did not exit {VSTART_EXIT_S} s "
+                                 f"after SIGTERM")
+    exit_s = time.monotonic() - ts
+    if rc != 0:
+        raise AssertionError(f"vstart exited {rc} on SIGTERM (see "
+                             f"{log_path})")
+    nb = VSTART_OBJS * VSTART_OBJ_BYTES
+    return (f"vstart up in {up_s:.4f} s; rados put {VSTART_OBJS} x "
+            f"{VSTART_OBJ_BYTES} in {put_s:.4f} s "
+            f"({nb / 2**30 / put_s:.3f} GiB/s, one CLI call and client "
+            f"an object), get in {get_s:.4f} s, every byte as written; rados "
+            f"bench {VSTART_BENCH_S} s write: {bench['write']['total_ops']} "
+            f"ops, {bench['write']['bandwidth_mb_sec']} MB/s, seq: "
+            f"{bench['seq']['total_ops']} ops, "
+            f"{bench['seq']['bandwidth_mb_sec']} MB/s, errors 0; rbd "
+            f"import, snapshot, clone, export of {VSTART_IMAGE_BYTES} "
+            f"bytes in {rbd_s:.4f} s, equal; cephfs put and get of "
+            f"{VSTART_FILE_BYTES} bytes on the EC pool in {fs_s:.4f} s, "
+            f"equal; the OSDs' perf dumps: encode calls {calls}, twin "
+            f"routes 0, device errors 0; exit 0 {exit_s:.4f} s after "
+            f"SIGTERM")
+
+
+def tools_path(np, registry, counts) -> dict:
+    """The port's tools on the card, each through the entry point a user
+    runs, each sub-phase with the launch counts zeroed just before it:
+    ec_benchmark (BENCH_RUNS) in-process through ``main(argv)``, each
+    line printed with bench.sh's GB/s and the card, then the tool's own
+    payload encoded through `gpu` and through jerasure, chunks equal;
+    ``ec_non_regression --check`` of the committed corpus (9 configs,
+    exact; the `gpu` entry reads ``tpu_k=8_m=4``); ``ec_tool`` encode and
+    decode of a TOOL_FILE_BYTES file with 4 chunks deleted; the
+    ``bench_sweep`` of SWEEP_ARGS, all 12 rows; and vstart_path.
+    -> the launches by sub-phase, keyed ``tools_{name}``."""
+    import random
+    import shutil
+    from ceph_tpu_torch.tools import (bench_sweep, ec_benchmark,
+                                      ec_non_regression, ec_tool)
+    where = card()
+    scratch = os.path.join(HERE, "build", "chip_smoke_tools")
+    logs = os.path.join(HERE, "chiprun_out")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    os.makedirs(logs, exist_ok=True)
+    gen = np.random.default_rng(SEED + 14)
+    out = {}
+
+    def sub(name, fn):
+        counts.reset()
+        ts = time.monotonic()
+        try:
+            line = fn()
+        finally:
+            out[f"tools_{name}"] = launches = counts.read()
+        print(f"tools {name}: {time.monotonic() - ts:.4f} s; launches "
+              f"B1 {launches['B1']} B2 {launches['B2']} B3 "
+              f"{launches['B3']}; {line}")
+
+    for name, _, argv in BENCH_RUNS:
+        def bench(argv=argv):
+            rc, text = tool_out(ec_benchmark.main, argv)
+            lines = text.splitlines()
+            if rc != 0 or len(lines) != 1:
+                raise AssertionError(f"ec_benchmark {argv}: rc {rc} {text!r}")
+            secs, kib = lines[0].split("\t")
+            return (f"ec_benchmark {' '.join(argv)}: {lines[0]!r} = "
+                    f"{int(kib) / 2**20 / float(secs):.4f} GB/s by bench.sh's "
+                    f"KiB / 2^20 / s, on {where}")
+        sub(name, bench)
+    size = int(BENCH_RUNS[0][2][BENCH_RUNS[0][2].index("-S") + 1])
+    data = random.Random(42).randbytes(size)
+    profile = {"k": str(K), "m": str(M), "technique": "reed_sol_van"}
+    gpu = registry.instance().factory("gpu", dict(profile))
+    jer = registry.instance().factory("jerasure", dict(profile))
+    want = set(range(K + M))
+    got, ref = gpu.encode(want, data), jer.encode(want, data)
+    if sorted(got) != sorted(ref) or any(bytes(got[i]) != bytes(ref[i])
+                                         for i in ref):
+        raise AssertionError("ec_benchmark's payload: gpu chunks != jerasure")
+    print(f"tools: ec_benchmark's payload of {size} bytes encoded through "
+          f"gpu equals jerasure's, {K + M} chunks")
+
+    def corpus():
+        rc, text = tool_out(ec_non_regression.main, [
+            "--check", "--base", os.path.join(HERE, "corpus"), "-v"])
+        if rc != 0 or "corpus ok: 9 configs" not in text:
+            raise AssertionError(f"corpus check: rc {rc} {text!r}")
+        if f"ok {os.path.join(HERE, 'corpus', 'tpu_k=8_m=4')} " not in text:
+            raise AssertionError(f"corpus: no gpu entry read {text!r}")
+        return text.strip().splitlines()[-1]
+    sub("corpus", corpus)
+
+    def tool_roundtrip():
+        path = os.path.join(scratch, "obj.bin")
+        blob = np.asarray(gen.integers(0, 256, TOOL_FILE_BYTES,
+                                       dtype=np.uint8)).tobytes()
+        with open(path, "wb") as f:
+            f.write(blob)
+        prof = f"plugin=gpu,k={K},m={M}"
+        rc, enc = tool_out(ec_tool.main, ["encode", prof, "4096", "all",
+                                          path])
+        if rc != 0:
+            raise AssertionError(f"ec_tool encode: rc {rc}")
+        for i in ERASED:
+            os.unlink(f"{path}.{i}")
+        rc, dec = tool_out(ec_tool.main, ["decode", prof, "4096", "all",
+                                          path])
+        with open(path + ".decoded", "rb") as f:
+            got = f.read()
+        if rc != 0 or got[:len(blob)] != blob or any(got[len(blob):]):
+            raise AssertionError(f"ec_tool decode: rc {rc}, output differs")
+        return (f"ec_tool {prof}: {enc.strip()}; chunks {list(ERASED)} "
+                f"deleted; {dec.strip()}, equal to the input")
+    sub("ec_tool", tool_roundtrip)
+
+    def sweep():
+        rc, text = tool_out(bench_sweep.main, SWEEP_ARGS)
+        rows = [json.loads(ln) for ln in text.splitlines() if ln.strip()]
+        got = sorted((r["k"], r["m"], r["workload"]) for r in rows)
+        want_rows = sorted((int(k), int(m), w)
+                           for k, m in (km.split("/")
+                                        for km in bench_sweep.DEFAULT_KM)
+                           for w in ("encode", "decode"))
+        if rc != 0 or got != want_rows:
+            raise AssertionError(f"bench_sweep: rc {rc}, rows {got}")
+        return (f"bench_sweep {' '.join(SWEEP_ARGS)}: {len(rows)} rows, GB/s "
+                + ", ".join(f"{r['k']}/{r['m']} {r['workload']} "
+                            f"{r['gbps']}" for r in rows))
+    sub("bench_sweep", sweep)
+    sub("vstart", lambda: vstart_path(np, gen, scratch, logs))
+    shutil.rmtree(scratch, ignore_errors=True)
+    return out
+
+
 # phase -> the kernel its path must launch (None: no codec kernel)
 PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "ecutil": "B1", "pkt_encode": "B2",
@@ -3397,6 +3719,13 @@ PHASE_KERNEL.update({f"{prefix}_{step}": "B1"
                      for prefix in ("cluster", "crimson")
                      for step in ("write", "overwrite", "degraded",
                                   "rebuild", "scrub")})
+PHASE_KERNEL.update({f"tools_{name}": kernel
+                     for name, kernel, _ in BENCH_RUNS})
+PHASE_KERNEL.update({"tools_corpus": "B1", "tools_ec_tool": "B1",
+                     "tools_bench_sweep": "B1",
+                     # B1 runs in vstart's own process: its OSDs' perf
+                     # dumps stand for it (vstart_path)
+                     "tools_vstart": None})
 PHASE_KERNEL.update({"crimson_striper": "B1", "crimson_rbd": "B1",
                      "crimson_cephfs": "B1",
                      # a replicated pool: no codec kernel (rgw_step)
@@ -3461,6 +3790,8 @@ def main() -> int:
         ecb = ecbackend_path(torch, np, registry, ecutil, counts)
         scrub = ecb["scrub"]
         elapsed("the ecbackend phase")
+        tools = tools_path(np, registry, counts)
+        elapsed("the tools phase")
         cri = cluster_path(torch, np, registry, ecutil, counts, "crimson",
                            CRIMSON_OBJS, services=True)
         elapsed("the crimson cluster phase")
@@ -3469,7 +3800,7 @@ def main() -> int:
         elapsed("the classic cluster phase")
         launches = {**run["launches"], **pkt["launches"],
                     **plug["launches"], **bat, "store": store["launches"],
-                    **ecb["launches"], **cri, **clu}
+                    **ecb["launches"], **tools, **cri, **clu}
         for phase, n in launches.items():
             if PHASE_KERNEL[phase] and n[PHASE_KERNEL[phase]] < 1:
                 raise AssertionError(

@@ -533,16 +533,12 @@ def test_crimson_osd_down_detection_and_rebuild():
 
 
 @pytest.mark.slow
-def test_crimson_thrash_radosmodel_soak(monkeypatch):
+def test_crimson_thrash_radosmodel_soak():
     """Random kills and revives under a random RadosModel workload,
     byte-exact verification after settling: the thrash bar with crimson
-    OSDs.  The port has no thrash tool, so the JAX package's RadosModel
-    and Thrasher drive the port's cluster; they only call its public
-    surface, and the model catches the port's RadosError."""
-    from ceph_tpu.tools import thrash
-    from ceph_tpu_torch.client.rados import RadosError
+    OSDs, driven by the port's own thrash tool."""
+    from ceph_tpu_torch.tools import thrash
 
-    monkeypatch.setattr(thrash, "RadosError", RadosError)
     conf = make_conf(osd_backend="crimson")
     with Cluster(n_osds=4, conf=conf) as c:
         for i in range(4):

@@ -1,10 +1,10 @@
 """The daemonless file system in the port (ceph_tpu_torch.fs): a
 hierarchy over a metadata pool and striped file data in a data pool.
 
-Port twins of 9 of the 11 tests of tests/test_fs.py (reference analog:
-src/test/libcephfs/); not test_cli_put_replaces_whole_file or
-test_cephfs_cli, which drive the cephfs command-line tool of the JAX
-package's tools/, still unported.  Then the slice held against the JAX
+Port twins of the 11 tests of tests/test_fs.py (reference analog:
+src/test/libcephfs/), test_cli_put_replaces_whole_file and
+test_cephfs_cli through the port's cephfs command-line tool
+(ceph_tpu_torch.tools.cephfs_cli).  Then the slice held against the JAX
 package: one seeded tree (directories, files, offset writes, truncates,
 renames, unlinks) through FileSystem on a 3-OSD cluster of each
 package, metadata replicated and data on a k=2 m=1 pool, with the
@@ -115,6 +115,24 @@ def test_rename_edge_cases(fs):
     assert fs.exists("/re/sub")
 
 
+def test_cli_put_replaces_whole_file(cl, tmp_path):
+    """put then a smaller put must round-trip (no stale tail)."""
+    from ceph_tpu_torch.tools import cephfs_cli
+    host, port = cl.mon_addr
+    base = ["-m", f"{host}:{port}", "--meta-pool", "fsmeta"]
+    big = tmp_path / "big.bin"
+    big.write_bytes(os.urandom(80_000))
+    small = tmp_path / "small.bin"
+    small.write_bytes(os.urandom(20_000))
+    out = tmp_path / "round.bin"
+    assert cephfs_cli.main([*base, "put", str(big), "/repl.bin"]) == 0
+    assert cephfs_cli.main([*base, "put", str(small),
+                            "/repl.bin"]) == 0
+    assert cephfs_cli.main([*base, "get", "/repl.bin",
+                            str(out)]) == 0
+    assert out.read_bytes() == small.read_bytes()
+
+
 def test_walk(fs):
     fs.mkdir("/w")
     fs.mkdir("/w/sub")
@@ -146,6 +164,34 @@ def test_persistence_across_mounts(cl):
     fs2 = FileSystem(r.open_ioctx("fsmeta"))
     assert fs2.exists("/proj/src/main.bin")
     assert fs2.stat("/proj/src/main.bin")["size"] == 150_000
+
+
+def test_cephfs_cli(cl, tmp_path, capsys):
+    from ceph_tpu_torch.tools import cephfs_cli
+    host, port = cl.mon_addr
+    m = f"{host}:{port}"
+    base = ["-m", m, "--meta-pool", "fsmeta"]
+    assert cephfs_cli.main([*base, "mkdir", "/cli"]) == 0
+    src = tmp_path / "in.bin"
+    src.write_bytes(os.urandom(50_000))
+    assert cephfs_cli.main([*base, "put", str(src),
+                            "/cli/file.bin"]) == 0
+    dst = tmp_path / "out.bin"
+    assert cephfs_cli.main([*base, "get", "/cli/file.bin",
+                            str(dst)]) == 0
+    assert dst.read_bytes() == src.read_bytes()
+    assert cephfs_cli.main([*base, "ls", "/cli"]) == 0
+    assert "file.bin" in capsys.readouterr().out
+    assert cephfs_cli.main([*base, "mv", "/cli/file.bin",
+                            "/cli/rn.bin"]) == 0
+    assert cephfs_cli.main([*base, "stat", "/cli/rn.bin"]) == 0
+    assert "size=50000" in capsys.readouterr().out
+    assert cephfs_cli.main([*base, "tree", "/"]) == 0
+    capsys.readouterr()
+    assert cephfs_cli.main([*base, "rm", "/cli/rn.bin"]) == 0
+    assert cephfs_cli.main([*base, "rmdir", "/cli"]) == 0
+    assert cephfs_cli.main([*base, "rm", "/cli/never"]) == 1
+    capsys.readouterr()
 
 
 # ------------------------------------------ the slice against the JAX package

@@ -228,15 +228,13 @@ def test_importlib_name_check_sees_the_reference_loader(tmp_path):
 
 # Modules of the JAX package that the port does not hold, as paths
 # under the package.  The list only shrinks: the client services
-# (rbd/, rgw/, fs/, mds/) left it when they were ported; the device
-# mesh and the command-line tools remain.
-UNPORTED_MODULES = frozenset(
-    ["parallel/__init__.py", "parallel/mesh.py"]
-    + [f"tools/{m}.py" for m in (
-        "__init__", "bench_sweep", "ceph_cli", "cephadm", "cephfs_cli",
-        "common", "crushtool", "ec_benchmark", "ec_non_regression",
-        "ec_tool", "objectstore_tool", "osdmaptool", "rados_cli",
-        "rbd_cli", "thrash", "vstart")])
+# (rbd/, rgw/, fs/, mds/) and then the command-line tools (tools/) left
+# it when they were ported; the device mesh remains.
+UNPORTED_MODULES = frozenset(["parallel/__init__.py", "parallel/mesh.py"])
+TOOLS = ("__init__", "bench_sweep", "ceph_cli", "cephadm", "cephfs_cli",
+         "common", "crushtool", "ec_benchmark", "ec_non_regression",
+         "ec_tool", "objectstore_tool", "osdmaptool", "rados_cli",
+         "rbd_cli", "thrash", "vstart")
 # the JAX package's modules that the port replaces with its own
 REPLACED_MODULES = {"ops/jax_engine.py": "ops/torch_engine.py",
                     "ec/plugins/tpu.py": "ec/plugins/gpu.py"}
@@ -254,7 +252,39 @@ def test_unported_modules_are_the_frozen_list():
     port = _py_files(PKG)
     assert ref - port == UNPORTED_MODULES | set(REPLACED_MODULES)
     assert set(REPLACED_MODULES.values()) <= port
-    assert {m.split("/")[0] for m in UNPORTED_MODULES} == \
-        {"parallel", "tools"}
-    for pkg in ("rbd", "rgw", "fs", "mds"):
+    assert {m.split("/")[0] for m in UNPORTED_MODULES} == {"parallel"}
+    for pkg in ("rbd", "rgw", "fs", "mds", "tools"):
         assert {m for m in ref if m.startswith(pkg + "/")} <= port, pkg
+
+
+def test_every_tool_imports_with_jax_and_ceph_tpu_blocked():
+    """The 16 modules of tools/ import with ``jax`` and ``ceph_tpu``
+    blocked, leave neither loaded, and every tool's usage text names
+    the port's package."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ceph_tpu'] = None\n"
+        f"for name in {TOOLS!r}:\n"
+        "    mod = importlib.import_module('ceph_tpu_torch.tools' + ("
+        "'' if name == '__init__' else '.' + name))\n"
+        "    assert 'ceph_tpu.tools' not in (mod.__doc__ or ''), name\n"
+        "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
+        " or n == 'ceph_tpu' or n.startswith('ceph_tpu.')]\n"
+        "assert all(sys.modules[n] is None for n in bad), bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+    tools = os.path.join(PKG, "tools")
+    assert {f[:-3] for f in os.listdir(tools) if f.endswith(".py")} == \
+        set(TOOLS)
+    for name in TOOLS:
+        text = open(os.path.join(tools, name + ".py")).read()
+        assert "ceph_tpu.tools" not in text, name
+        for line in text.splitlines():
+            if "python -m " in line:
+                assert "python -m ceph_tpu_torch.tools." in line, (
+                    name, line)

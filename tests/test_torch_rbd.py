@@ -3,10 +3,9 @@ over RADOS objects, with selfmanaged snapshots, clones, resize,
 exclusive lock, journaling, object map and mirroring, on the port's
 cluster at the config default (crimson OSDs).
 
-Port twins of 16 of the 17 tests of tests/test_rbd.py (reference
-analog: src/test/librbd/); not test_rbd_cli_roundtrip, which drives the
-rbd command-line tool of the JAX package's tools/, still unported.
-Then the slice held against the JAX package: one seeded script of
+Port twins of the 17 tests of tests/test_rbd.py (reference analog:
+src/test/librbd/), test_rbd_cli_roundtrip through the port's rbd
+command-line tool (ceph_tpu_torch.tools.rbd_cli).  Then the slice held against the JAX package: one seeded script of
 writes, a snapshot, overwrites, a clone, resizes and a flatten on a
 k=2 m=1 pool (the `gpu` plugin on the CPU against the reference's
 `tpu`) of a 3-OSD cluster of each package, with every view's bytes and
@@ -202,6 +201,31 @@ def test_resize(io):
     got = img.read(0, 80 << 10)
     assert got[:40 << 10] == data[:40 << 10]
     assert got[40 << 10:] == b"\0" * (40 << 10)
+
+
+def test_rbd_cli_roundtrip(cl, tmp_path, capsys):
+    from ceph_tpu_torch.tools import rbd_cli
+    host, port = cl.mon_addr
+    m = f"{host}:{port}"
+    src = tmp_path / "disk.img"
+    src.write_bytes(os.urandom(150_000))
+    assert rbd_cli.main(["-m", m, "-p", "rbdp", "import", str(src),
+                         "cliimg", "--order", str(ORDER)]) == 0
+    assert rbd_cli.main(["-m", m, "-p", "rbdp", "ls"]) == 0
+    assert "cliimg" in capsys.readouterr().out.split()
+    assert rbd_cli.main(["-m", m, "-p", "rbdp", "snap", "create",
+                         "cliimg@s1"]) == 0
+    assert rbd_cli.main(["-m", m, "-p", "rbdp", "clone", "cliimg@s1",
+                         "clichild"]) == 0
+    dst = tmp_path / "out.img"
+    assert rbd_cli.main(["-m", m, "-p", "rbdp", "export", "clichild",
+                         str(dst)]) == 0
+    assert dst.read_bytes() == src.read_bytes()
+    assert rbd_cli.main(["-m", m, "-p", "rbdp", "info",
+                         "clichild"]) == 0
+    import json
+    info = json.loads(capsys.readouterr().out)
+    assert info["parent"]["image"] == "cliimg"
 
 
 def test_clone_shrink_grow_exposes_zeros(io):
