@@ -2,7 +2,8 @@
 
 It sits beside the JAX package, mirrors its module names, and shares no
 code with it: the JAX package stays the reference the port is held
-against.  Ported so far, from the codec up:
+against.  Every module of the JAX package has its counterpart here,
+from the codec up:
   ceph_tpu_torch.ops    - GF(2^w) tables, coding matrices, CodecCore, the
                           torch engine, kernels B1, B2 and B3 (csrc/) and
                           crclinear, CRC32C as a bitmatrix apply
@@ -27,6 +28,9 @@ against.  Ported so far, from the codec up:
   ceph_tpu_torch.crush  - CRUSH mapper and wrapper (placement)
   ceph_tpu_torch.compressor - the compressor registry (frames, BlueStore)
   ceph_tpu_torch.auth, .mgr - the keyring; the SLO and health helpers
+  ceph_tpu_torch.parallel - the dp x sp device mesh the backend shards
+                          byte-code batches over (B1 on every block) and
+                          its dryrun; one device means no mesh
   ceph_tpu_torch.utils  - crc32c, and what the batcher and the daemons
                           stand on: config, logging, perf counters, flight
                           recorder, device ledger, faults, tuner, locks,

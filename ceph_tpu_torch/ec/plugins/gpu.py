@@ -76,6 +76,12 @@ class _DecodeHandle:
         return getattr(self._ab, "ledger", None)
 
     @property
+    def ledgers(self):
+        """Per-device ledger clones of a mesh-sharded dispatch (one lane
+        a logical device), None on a single device — AsyncBatch.ledgers."""
+        return getattr(self._ab, "ledgers", None)
+
+    @property
     def h2d_bytes(self):
         return getattr(self._ab, "h2d_bytes", 0)
 

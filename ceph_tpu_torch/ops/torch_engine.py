@@ -24,6 +24,11 @@ length: B1 has no per-shape build to share.
 
 Every backend names its device.  ``TorchBackend()`` means CUDA and
 raises where there is none; the CPU is used only when asked for.
+
+Where more than one device is visible (parallel/mesh.py), the async
+byte-code entries shard each staged batch over a dp x sp mesh and apply
+every block on its own device, as the JAX backend does; one device means
+no mesh and the single-device path.  Packet codes never shard.
 """
 from __future__ import annotations
 
@@ -393,7 +398,8 @@ class AsyncBatch:
     done."""
 
     def __init__(self, dev_out: torch.Tensor, batch: int, L: int,
-                 lead: tuple, ledger: Optional[dict] = None):
+                 lead: tuple, ledger: Optional[dict] = None,
+                 device_ids: Optional[list] = None):
         self._batch = batch
         self._L = L
         self._lead = lead
@@ -402,10 +408,18 @@ class AsyncBatch:
         self.h2d_bytes = 0
         self.h2d_seconds = 0.0
         # device-phase ledger: absolute stamps, finalized by wait(),
-        # keyed by CUDA ordinal (0 on the CPU)
+        # keyed by CUDA ordinal (0 on the CPU), or by the first logical
+        # id of the mesh the output was gathered from
         self.ledger = ledger
+        # mesh dispatch: one ledger clone per logical device (same
+        # stamps — every device shares the dispatch window — bytes split
+        # per device), built by wait(); None on a single-device dispatch
+        self.ledgers = None
+        self._mesh_device_ids = device_ids \
+            if device_ids and len(device_ids) > 1 else None
         if ledger is not None and "device" not in ledger:
-            ledger["device"] = dev_out.device.index or 0
+            ledger["device"] = self._mesh_device_ids[0] \
+                if self._mesh_device_ids else dev_out.device.index or 0
         if dev_out.device.type == "cuda":
             stream = torch.cuda.current_stream(dev_out.device)
             self._compute_ev = torch.cuda.Event()
@@ -434,6 +448,11 @@ class AsyncBatch:
         if led is not None:
             led["deliver"] = time.time()
             led["bytes"] = out.nbytes
+            ids = self._mesh_device_ids
+            if ids:
+                self.ledgers = [dict(led, device=d,
+                                     bytes=led["bytes"] // len(ids))
+                                for d in ids]
         return out
 
 
@@ -452,6 +471,15 @@ class TorchBackend:
         self._dev_matrices: dict = {}
         self._chain_lru = ChainLRU(256)
         self.staging = StagingPool(pinned=self.device.type == "cuda")
+        # device mesh: resolved lazily from the conf knobs on the first
+        # dispatch; None with one visible device
+        self._mesh_conf = (0, 0)      # (n_devices, sp); 0 = auto
+        self._mesh = None
+        self._mesh_checked = False
+        self._mesh_err: Optional[Exception] = None
+        self._mesh_lock = threading.Lock()
+        self.mesh_events: list = []   # mesh_build records for the
+                                      # flight recorder (batcher drains)
 
     @property
     def is_cuda(self) -> bool:
@@ -465,17 +493,61 @@ class TorchBackend:
             self.staging.set_depth(depth)
 
     def configure_mesh(self, n_devices: int = 0, sp: int = 0) -> None:
-        """Accept the ``ec_tpu_mesh_devices`` / ``ec_tpu_mesh_sp`` knobs.
-        One card means no mesh: the single-device path always serves."""
+        """Set the mesh conf knobs (``ec_tpu_mesh_devices`` /
+        ``ec_tpu_mesh_sp``; 0 = auto).  Resets the lazy resolution so
+        the next dispatch or prewarm probes again."""
+        conf = (int(n_devices), int(sp))
+        with self._mesh_lock:
+            if conf != self._mesh_conf:
+                self._mesh_conf = conf
+                self._mesh = None
+                self._mesh_checked = False
+                self._mesh_err = None
 
-    # no mesh was ever built, so there are no mesh_build events
-    mesh_events: tuple = ()
+    def _resolve_mesh(self, strict: bool = False):
+        """The production mesh, or None (one visible device, or a conf
+        that cannot build one).  ``strict=True`` (prewarm) raises a bad
+        explicit conf as a ValueError naming the knobs instead of
+        serving single-device: a misconfigured mesh fails at prewarm,
+        not mid-dispatch."""
+        if not self._mesh_checked:
+            from ..parallel import mesh as pmesh
+            with self._mesh_lock:
+                if not self._mesh_checked:
+                    try:
+                        self._mesh = pmesh.resolve_mesh(
+                            *self._mesh_conf, device=self.device)
+                    except ValueError as e:
+                        self._mesh = None
+                        self._mesh_err = e
+                    if self._mesh is not None:
+                        self.mesh_events.append(dict(
+                            pmesh.mesh_info(self._mesh),
+                            event="mesh_build", ts=time.time()))
+                    self._mesh_checked = True
+        if strict and self._mesh_err is not None:
+            raise ValueError(
+                f"mesh configuration invalid "
+                f"(ec_tpu_mesh_devices={self._mesh_conf[0]}, "
+                f"ec_tpu_mesh_sp={self._mesh_conf[1]}): "
+                f"{self._mesh_err}")
+        return self._mesh
 
     def mesh_info(self) -> Optional[dict]:
         """The active device mesh as {dp, sp, n_devices, device_ids}, or
-        None: one card, no mesh.  The OSD batcher keys its learned
+        None: one device, no mesh.  The OSD batcher keys its learned
         crossover and link estimate by this shape."""
-        return None
+        from ..parallel import mesh as pmesh
+        return pmesh.mesh_info(self._resolve_mesh())
+
+    def _device_matrix_mesh(self, B: np.ndarray, mesh, w: int):
+        """A bitmatrix operand replicated on every device of ``mesh``,
+        cached per (mesh, w, bitmatrix) like the single-device one."""
+        from ..parallel import mesh as pmesh
+        B = np.asarray(B, dtype=np.uint8)
+        return self._chain_lru.get_or_build(
+            ("bmmesh", mesh.key, w, B.shape, B.tobytes()),
+            lambda: pmesh.Replicated(mesh, B, w))
 
     def memory_stats(self) -> dict:
         """Footprint snapshot for the memory-accounting gauges: host
@@ -544,16 +616,34 @@ class TorchBackend:
         out = out.reshape(lead + out.shape[-2:])
         return out[0] if squeeze else out
 
-    def _staged_put(self, data: np.ndarray, quantum: int):
+    def _staged_put(self, data: np.ndarray, quantum: int,
+                    shardable: bool = False):
         """Pad [batch, k, L] into a persistent staging slot and start its
-        h2d copy.  Returns ``(dev, batch, L, done, sampled, ledger)``; the
-        caller MUST invoke ``done()`` right after dispatching the kernel
-        on ``dev`` — that records the fence which lets a later batch
-        overwrite the slot.  Every Nth staging is fenced and timed for
-        the pool's h2d EWMA.  ``ledger`` carries the device-phase stamps
-        so far (stage_acquire, h2d_start, h2d_done)."""
+        h2d copy.  Returns ``(dev, batch, L, done, sampled, ledger,
+        mesh)``; the caller MUST invoke ``done()`` right after
+        dispatching the kernel on ``dev`` — that records the fence which
+        lets a later batch overwrite the slot.  Every Nth staging is
+        fenced and timed for the pool's h2d EWMA.  ``ledger`` carries the
+        device-phase stamps so far (stage_acquire, h2d_start, h2d_done).
+        ``mesh`` is the live mesh when a ``shardable`` batch is to be
+        dispatched sharded (its bucket then rounded up to a multiple of
+        dp), else None: one device, or a padded length the sp axis
+        cannot split into whole words."""
         batch, k, L = data.shape
-        shape = (_bucket_batch(batch), k, _round_up(L, quantum))
+        Lp = _round_up(L, quantum)
+        bb = _bucket_batch(batch)
+        mesh = self._resolve_mesh() if shardable else None
+        if mesh is not None:
+            # every sp block must hold whole w-bit words; an auto sp that
+            # cannot split this length serves it single-device (an
+            # explicit one was refused at prewarm)
+            wbytes = max(1, quantum // LENGTH_QUANTUM)
+            if Lp % (mesh.shape["sp"] * wbytes):
+                mesh = None
+            else:
+                # padding rows are zero stripes, trimmed on deliver
+                bb = _round_up(bb, mesh.shape["dp"])
+        shape = (bb, k, Lp)
         slot = self.staging.acquire(shape)
         ledger = {"stage_acquire": time.time()}
         try:
@@ -600,10 +690,14 @@ class TorchBackend:
                 fence = torch.cuda.Event()
                 fence.record(torch.cuda.current_stream(self.device))
             self.staging.release(_shape, _slot, fence)
-        return dev, batch, L, done, sample, ledger
+        return dev, batch, L, done, sample, ledger, mesh
 
-    def _dispatch_async(self, fn, data: np.ndarray,
-                        quantum: int) -> AsyncBatch:
+    def _dispatch_async(self, fn_of, data: np.ndarray, quantum: int,
+                        shardable: bool = True) -> AsyncBatch:
+        """Stage ``data`` and enqueue ``fn_of(mesh)`` on it: with
+        ``mesh`` None a function of the staged [batch', k, L'] tensor,
+        else a sharded function of its ShardedArray, whose blocks are
+        gathered back into one tensor for the d2h copy."""
         squeeze = data.ndim == 2
         if squeeze:
             data = data[None]
@@ -614,16 +708,23 @@ class TorchBackend:
         # d2h copy on the current stream of this backend's device
         with (torch.cuda.device(self.device) if self.is_cuda
               else contextlib.nullcontext()):
-            dev, batch, L, done, sample, ledger = self._staged_put(
-                data, quantum)
+            dev, batch, L, done, sample, ledger, mesh = self._staged_put(
+                data, quantum, shardable)
+            ids = None
             try:
-                out = fn(dev)
+                if mesh is None:
+                    out = fn_of(None)(dev)
+                else:
+                    from ..parallel import mesh as pmesh
+                    out = fn_of(mesh)(pmesh.shard_batch(mesh, dev)).gather(
+                        self.device)
+                    ids = mesh.device_ids
                 ledger["compute_start"] = time.time()
             finally:
                 # on success the fence follows the kernel; on failure it
                 # follows the h2d copy — either way the slot comes back
                 done()
-            ab = AsyncBatch(out, batch, L, lead, ledger)
+            ab = AsyncBatch(out, batch, L, lead, ledger, device_ids=ids)
         if sample is not None:
             ab.h2d_bytes, ab.h2d_seconds = sample
         return ab
@@ -649,10 +750,29 @@ class TorchBackend:
                          packetsize: int = 0) -> None:
         """Preallocate the staging rings a (k, chunk_size) geometry will
         dispatch, so the first client write reuses warm buffers.
-        Idempotent and host-side only."""
+        Idempotent and host-side only.
+
+        This is also where mesh misconfiguration surfaces: a bad explicit
+        ``ec_tpu_mesh_sp`` (one that does not divide the device count, or
+        cannot split this geometry's padded chunk length into whole
+        words) raises a ValueError here, not mid-dispatch."""
         Lp = _round_up(chunk_size, self.quantum(w, packetsize))
+        mesh = self._resolve_mesh(strict=True)
+        dp = 1
+        if mesh is not None and not packetsize:
+            sp = mesh.shape["sp"]
+            wbytes = max(1, w // 8)
+            if Lp % (sp * wbytes) == 0:
+                dp = mesh.shape["dp"]
+            elif self._mesh_conf[1]:
+                raise ValueError(
+                    f"ec_tpu_mesh_sp={sp} cannot shard the padded chunk "
+                    f"length {Lp} (w={w}: every sp shard must hold a whole "
+                    f"number of {wbytes}-byte words) — pick an sp dividing "
+                    f"{Lp // wbytes}")
         for nb in batches:
-            self.staging.ensure((_bucket_batch(max(1, int(nb))), k, Lp))
+            self.staging.ensure(
+                (_round_up(_bucket_batch(max(1, int(nb))), dp), k, Lp))
 
     # -- GF(2^8): kernel B1 --------------------------------------------
     def gf8_fast_path(self) -> bool:
@@ -661,11 +781,18 @@ class TorchBackend:
         plain version, and neither has a per-matrix compile to amortize."""
         return True
 
-    def gf8_fn(self, rows: np.ndarray):
+    def gf8_fn(self, rows: np.ndarray, mesh=None):
         """B1 apply for a GF(2^8) row set over [batch, C, L] byte chunks,
         with the device operand LRU-cached per row set — per-pool coding
-        matrices AND per-erasure-signature recovery rows."""
+        matrices AND per-erasure-signature recovery rows.  With ``mesh``
+        (from _staged_put) the sharded apply of the same operand over a
+        ShardedArray, one B1 launch a block."""
         rows = np.asarray(rows, dtype=np.int64)
+        if mesh is not None:
+            from ..parallel import mesh as pmesh
+            return self._chain_lru.get_or_build(
+                ("gf8mesh", mesh.key, rows.shape, rows.tobytes()),
+                lambda: pmesh.sharded_rows_fn(mesh, rows))
         key = ("gf8", rows.shape, rows.tobytes())
         operand = self._chain_lru.get_or_build(
             key, lambda: carry_rows(rows, matrix_to_bitmatrix(rows, 8),
@@ -702,16 +829,19 @@ class TorchBackend:
 
     def apply_gf8_matrix_async(self, M: np.ndarray,
                                data: np.ndarray) -> AsyncBatch:
-        """Non-blocking apply_gf8_matrix (double-buffering entry)."""
-        return self._dispatch_async(self.gf8_fn(M), data, LENGTH_QUANTUM)
+        """Non-blocking apply_gf8_matrix (double-buffering entry);
+        sharded over the mesh when one is live."""
+        return self._dispatch_async(
+            lambda mesh: self.gf8_fn(M, mesh=mesh), data, LENGTH_QUANTUM)
 
     def apply_gf8_rows_async(self, rows: np.ndarray,
                              data: np.ndarray) -> AsyncBatch:
         """Non-blocking apply_gf8_rows — decode groups ride the same
-        staging rings, cached operands and device-phase ledger as
+        staging rings, cached operands, mesh and device-phase ledger as
         encode."""
-        return self._dispatch_async(self.gf8_fn(rows), data,
-                                    LENGTH_QUANTUM)
+        return self._dispatch_async(
+            lambda mesh: self.gf8_fn(rows, mesh=mesh), data,
+            LENGTH_QUANTUM)
 
     # -- generic-w bitmatrix -------------------------------------------
     @staticmethod
@@ -739,8 +869,14 @@ class TorchBackend:
         """Non-blocking apply_bitmatrix_bytes: enqueues the h2d copy, the
         apply and the d2h copy, returning a handle."""
         wbytes = self._check_words(data, w)
-        return self._dispatch_async(self._bitmatrix_fn(B, w), data,
-                                    LENGTH_QUANTUM * wbytes)
+
+        def fn_of(mesh):
+            if mesh is None:
+                return self._bitmatrix_fn(B, w)
+            from ..parallel import mesh as pmesh
+            return functools.partial(pmesh.sharded_apply_fn(mesh, w),
+                                     self._device_matrix_mesh(B, mesh, w))
+        return self._dispatch_async(fn_of, data, LENGTH_QUANTUM * wbytes)
 
     def apply_bitmatrix_bytes_device(self, B: np.ndarray, dev_data, w: int):
         """Device-resident apply: input already on the device (padded by
@@ -783,8 +919,9 @@ class TorchBackend:
                                w: int, packetsize: int) -> AsyncBatch:
         """Non-blocking apply_packet_xor: packet codes' double-buffering
         entry, on the same staging rings and ledger as the byte codes."""
-        return self._dispatch_async(self.packet_chain_fn(B, w, packetsize),
-                                    data, w * packetsize)
+        return self._dispatch_async(
+            lambda _: self.packet_chain_fn(B, w, packetsize), data,
+            w * packetsize, shardable=False)
 
     def apply_packet_chunks(self, B: np.ndarray, data: np.ndarray, w: int,
                             packetsize: int) -> np.ndarray:

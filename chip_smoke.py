@@ -3693,6 +3693,383 @@ def tools_path(np, registry, counts) -> dict:
     return out
 
 
+# mesh phase: a dp x sp mesh of MESH_SHARDS logical shards of the card,
+# driven in a child process that sets CEPH_TPU_TORCH_FORCE_DEVICE_COUNT
+# (the port's counterpart of XLA's forced host device count), so the
+# parent's one-card state stays untouched
+MESH_SHARDS = 4            # dp=2 x sp=2, device ids 0-3
+MESH_INFO = {"dp": 2, "sp": 2, "n_devices": MESH_SHARDS,
+             "device_ids": list(range(MESH_SHARDS))}
+MESH_ODD = 5               # stripes of the dispatch that needs dp padding
+MESH_OPS = 64              # batcher writes of 4 MiB, 256 MiB in all
+MESH_CHILD_S = 240         # the child is killed past this
+
+
+class _Since:
+    """A launch counter for run_lane that leaves the module's running
+    count alone: read() is the launches since the last reset()."""
+
+    def __init__(self, mod):
+        self.mod = mod
+        self.base = mod.launches
+
+    def reset(self) -> None:
+        self.base = self.mod.launches
+
+    def read(self) -> dict:
+        return {"B1": self.mod.launches - self.base, "B2": 0, "B3": 0}
+
+
+def _digest(np, parity, bits: bool) -> int:
+    """The JAX package's digest of a whole parity array: its set bits
+    (or bytes) summed modulo 2^32, times 2654435761, modulo 2^32."""
+    s = int(np.unpackbits(parity).sum()) if bits else \
+        int(parity.astype(np.uint64).sum())
+    return (s % 2**32) * 2654435761 % 2**32
+
+
+def mesh_child() -> int:
+    """The mesh phase, run as ``chip_smoke.py --mesh-child`` with
+    CEPH_TPU_TORCH_FORCE_DEVICE_COUNT=MESH_SHARDS; everything on the
+    card, dp=2 x sp=2, every output byte-exact:
+      1. resolve_mesh() and the shared backend's mesh_info() give the
+         expected mesh;
+      2. the `gpu` plugin's async entries at the headline shape (k=8 m=4
+         reed_sol_van, [512, 8, 131072], 512 MiB a dispatch): encode, the
+         (1, 5, 9, 11) decode, the 2-column delta and an encode of
+         MESH_ODD stripes (dp padding), each one dispatch of one B1
+         launch a shard with one ledger lane a shard, each equal to the
+         same call with configure_mesh(1, 0) (one launch) and to B1's
+         plain version on a slice;
+      3. an EncodeBatcher built as in phase 5 takes MESH_OPS writes of 4
+         MiB from BATCH_THREADS threads, equal to its CPU twin, with no
+         twin route, device error or open breaker, its dump's mesh 2 x 2
+         and its ledger lanes 0-3;
+      4. sharded_encode_fn at w = 8, 16 and 32 and sharded_encode_gf8_fn
+         with their digests, ShardedEncoder and shared_encoder, on small
+         shapes, against NumpyBackend;
+      5. dryrun_multichip(MESH_SHARDS, "cuda");
+    then times the sharded headline encode (CUDA events, median of 20)
+    beside single-device B1 at the same shape.  Prints one JSON line
+    {"mesh": {...}} with its launches; exits non-zero on any failure."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        return fail("CUDA is not available")
+    sys.path.insert(0, HERE)
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.ops import carry, engine, gf8_kernel, matrix
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.parallel import dryrun
+    from ceph_tpu_torch.parallel import mesh as pmesh
+    t_start = time.monotonic()
+    report = {"dispatch_launches": {}}
+    try:
+        # 1. the mesh
+        mesh = pmesh.resolve_mesh(device=DEV)
+        codec = registry.instance().factory(
+            "gpu", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
+                    "device": DEV})
+        be = codec.core.backend
+        for what, info in (("resolve_mesh()", pmesh.mesh_info(mesh)),
+                           ("the backend", be.mesh_info())):
+            if info != MESH_INFO:
+                raise AssertionError(f"{what}: mesh {info}, not {MESH_INFO}")
+        print(f"mesh: {mesh} from {pmesh.FORCE_DEVICE_COUNT}="
+              f"{os.environ.get(pmesh.FORCE_DEVICE_COUNT)}, "
+              f"{torch.cuda.get_device_name(0)}, "
+              f"{time.monotonic() - t_start:.1f} s after start")
+
+        # 2. the headline async entries, sharded and single-device
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 17)
+
+        def rand(*shape):
+            return torch.randint(0, 256, shape, dtype=torch.uint8,
+                                 device=DEV, generator=gen).cpu().numpy()
+
+        d1, delta = rand(STRIPES, K, CHUNK), rand(STRIPES, len(DIRTY), CHUNK)
+        odd = rand(MESH_ODD, K, CHUNK)
+        core = codec.core
+        parity = {}
+
+        def present():
+            return {i: (d1[:, i] if i < K else parity["p"][:, i - K])
+                    for i in range(K + M) if i not in ERASED}
+        calls = {
+            "encode": lambda: codec.encode_batch_async(d1),
+            "decode": lambda: codec.decode_batch_async(present(), CHUNK),
+            "delta": lambda: codec.delta_encode_batch_async(delta, DIRTY),
+            "odd_encode": lambda: codec.encode_batch_async(odd)}
+        out, single = {}, {}
+        for name, call in calls.items():
+            before = gf8_kernel.launches
+            h = call()
+            out[name] = h.wait()
+            report["dispatch_launches"][name] = gf8_kernel.launches - before
+            lanes = [led["device"] for led in (h.ledgers or ())]
+            if lanes != MESH_INFO["device_ids"]:
+                raise AssertionError(f"mesh {name}: ledger lanes {lanes}")
+            if name == "encode":
+                parity["p"] = out[name]
+        be.configure_mesh(1, 0)
+        try:
+            if be.mesh_info() is not None:
+                raise AssertionError("configure_mesh(1, 0) left a mesh")
+            for name, call in calls.items():
+                before = gf8_kernel.launches
+                h = call()
+                single[name] = h.wait()
+                n = gf8_kernel.launches - before
+                if n != 1 or h.ledgers:
+                    raise AssertionError(f"single-device {name}: {n} "
+                                         f"launches")
+        finally:
+            be.configure_mesh(0, 0)
+        for name in calls:
+            a, b = out[name], single[name]
+            if isinstance(a, dict):
+                same = sorted(a) == sorted(b) and all(
+                    np.array_equal(a[e], b[e]) for e in a)
+            else:
+                same = np.array_equal(a, b)
+            if not same:
+                raise AssertionError(f"mesh {name} != single-device")
+        # B1's plain version on the first stripes of each dispatch
+        cut = 4
+        bits = matrix.matrix_to_bitmatrix(core.coding_matrix, 8)
+        chosen = tuple(i for i in range(K + M) if i not in ERASED)[:K]
+        _, rows_bits = core._recovery_rows(chosen, ERASED)
+        block = np.zeros((cut, K, CHUNK), np.uint8)
+        block[:, list(DIRTY)] = delta[:cut]
+        full = np.concatenate([d1[:cut], out["encode"][:cut]], axis=1)
+        for name, bm, src, got in (
+                ("encode", bits, d1[:cut], out["encode"][:cut]),
+                ("decode", rows_bits, full[:, list(chosen)],
+                 np.stack([out["decode"][e][:cut] for e in ERASED], 1)),
+                ("delta", bits, block, out["delta"][:cut]),
+                ("odd_encode", bits, odd, out["odd_encode"])):
+            want = gf8_kernel.gf8_apply_plain(
+                bm, torch.from_numpy(np.ascontiguousarray(src)).to(DEV))
+            if not np.array_equal(want.cpu().numpy(), got):
+                raise AssertionError(f"mesh {name} != plain B1 on a slice")
+        for e in ERASED:
+            want = d1[:, e] if e < K else out["encode"][:, e - K]
+            if not np.array_equal(out["decode"][e], want):
+                raise AssertionError(f"mesh decode chunk {e} != original")
+        del full, single, parity["p"]
+        print(f"mesh headline: encode, decode {ERASED}, delta {DIRTY} of "
+              f"[{STRIPES}, {K}, {CHUNK}] and an encode of {MESH_ODD} "
+              f"stripes equal to configure_mesh(1, 0) and plain B1; B1 "
+              f"launches a dispatch {report['dispatch_launches']}")
+
+        # 3. the batcher of phase 5, MESH_OPS writes of 4 MiB
+        from ceph_tpu_torch.osd.batcher import EncodeBatcher
+        from ceph_tpu_torch.utils.config import default_config
+        conf = default_config()
+        for name, value in (("ec_tpu_batch_stripes", BATCH_STRIPES),
+                            ("ec_tpu_queue_window_us", BATCH_WINDOW_US),
+                            ("ec_tpu_fallback_cpu", False),
+                            ("osd_ec_prewarm", True)):
+            conf.set(name, value)
+        EncodeBatcher.reset_learning()
+        b = EncodeBatcher(conf)
+        try:
+            sinfo = ecutil.StripeInfo(K, K * CHUNK)
+            warm = b.prewarm(codec, sinfo)
+            if warm is not None:
+                warm.join()
+            if b.prewarm_error is not None:
+                raise AssertionError(f"prewarm: {b.prewarm_error!r}")
+            objs = d1[:MESH_OPS * OBJ_STRIPES].reshape(MESH_OPS, -1)
+            r = run_lane(b, lambda i, cb: b.submit(codec, sinfo, objs[i],
+                                                   cb),
+                         MESH_OPS, _Since(gf8_kernel), "encode")
+            twin = b.cpu_twin(codec, sinfo)
+            for i, got in enumerate(r["out"]):
+                if got != ecutil.encode(sinfo, twin, objs[i].tobytes()):
+                    raise AssertionError(f"mesh batcher op {i} != CPU twin")
+            faults = {"cpu_reqs": b.cpu_reqs,
+                      "device_errors": b.device_errors,
+                      "breaker_opens": EncodeBatcher._breaker_opens}
+            if any(faults.values()):
+                raise AssertionError(f"mesh batcher faults {faults}")
+            lanes = sorted({led["device"] for led in r["ledgers"]})
+            dump = b.device_dump()["mesh"] or {}
+            if lanes != MESH_INFO["device_ids"] or \
+                    (dump.get("dp"), dump.get("sp")) != (2, 2):
+                raise AssertionError(f"mesh batcher lanes {lanes}, dump "
+                                     f"mesh {dump}")
+        finally:
+            b.stop()
+            EncodeBatcher.reset_learning()
+        report["batcher"] = {"requests": MESH_OPS, "calls": r["calls"],
+                             "launches": r["launches"]["B1"],
+                             "seconds": r["wall"]}
+        print(f"mesh batcher: {MESH_OPS} writes of 4 MiB from "
+              f"{BATCH_THREADS} threads in {r['calls']} calls, "
+              f"{r['launches']['B1']} B1 launches, {r['wall']:.4f} s host "
+              f"to host, equal to the CPU twin; lanes {lanes}, {faults}")
+
+        # 4. the sharded functions on small shapes
+        nb = engine.NumpyBackend()
+        small = np.random.default_rng(SEED + 18).integers(
+            0, 256, (8, 4, 1024), dtype=np.uint8)
+        for w in (8, 16, 32):
+            Mw = matrix.reed_sol_vandermonde_coding_matrix(4, 2, w)
+            before = gf8_kernel.launches
+            par, dig = pmesh.sharded_encode_fn(mesh, w)(
+                matrix.matrix_to_bitmatrix(Mw, w),
+                pmesh.shard_batch(mesh, small))
+            par = np.asarray(par)
+            want = nb.apply_matrix(Mw, small, w)
+            if not np.array_equal(par, want) or \
+                    int(dig) != _digest(np, want, bits=True):
+                raise AssertionError(f"sharded_encode_fn w={w} diverged")
+            if w == 8:
+                report["dispatch_launches"]["sharded_encode_w8"] = \
+                    gf8_kernel.launches - before
+        M4 = matrix.reed_sol_vandermonde_coding_matrix(4, 2, 8)
+        before = gf8_kernel.launches
+        par, dig = pmesh.sharded_encode_gf8_fn(mesh, M4)(
+            pmesh.shard_batch(mesh, small))
+        report["dispatch_launches"]["sharded_encode_gf8"] = \
+            gf8_kernel.launches - before
+        want = nb.apply_matrix(M4, small, 8)
+        if not np.array_equal(np.asarray(par), want) or \
+                int(dig) != _digest(np, want, bits=False):
+            raise AssertionError("sharded_encode_gf8_fn diverged")
+        small_codec = registry.instance().factory(
+            "gpu", {"k": "4", "m": "2", "device": DEV})
+        enc = pmesh.shared_encoder(small_codec)
+        if enc is None or (enc.dp, enc.sp) != (2, 2) or \
+                pmesh.shared_encoder(small_codec) is not enc:
+            raise AssertionError("shared_encoder: no 2 x 2 encoder")
+        before = gf8_kernel.launches
+        got = enc.encode_async(small[:MESH_ODD]).wait()
+        report["dispatch_launches"]["shared_encoder"] = \
+            gf8_kernel.launches - before
+        if not np.array_equal(got, want[:MESH_ODD]):
+            raise AssertionError("ShardedEncoder diverged")
+        print("mesh sharded functions: sharded_encode_fn at w = 8, 16, 32 "
+              "and sharded_encode_gf8_fn equal to NumpyBackend, with the "
+              "JAX package's digests; shared_encoder 2 x 2, a padded batch "
+              f"of {MESH_ODD} equal")
+
+        # 5. the dryrun
+        dryrun.dryrun_multichip(MESH_SHARDS, DEV)
+        report["launches"] = gf8_kernel.launches
+        report["seconds_driven"] = time.monotonic() - t_start
+
+        # the sharded headline encode against single-device B1
+        data = torch.from_numpy(d1).to(DEV)
+        del d1, delta, odd, out
+        rows = core.coding_matrix
+        op = carry.carry_rows(rows, bits, DEV)
+        whole = torch.empty((STRIPES, M, CHUNK), dtype=torch.uint8,
+                            device=DEV)
+        fn = pmesh.sharded_rows_fn(mesh, rows)
+        sharded = pmesh.shard_batch(mesh, data)
+
+        def run_b1():
+            gf8_kernel.gf8_apply(op, data, whole)
+
+        def run_sharded():
+            return fn(sharded)
+
+        def run_staged():
+            return fn(pmesh.shard_batch(mesh, data)).gather()
+
+        for f in (run_b1, run_sharded, run_staged):
+            for _ in range(3):
+                f()
+        b1_ms, _ = cuda_time_ms(run_b1, 20)
+        before = gf8_kernel.launches
+        sh_ms, sh_runs = cuda_time_ms(run_sharded, 20)
+        sh_launches = (gf8_kernel.launches - before) / 20
+        st_ms, _ = cuda_time_ms(run_staged, 20)
+        b1_again, _ = cuda_time_ms(run_b1, 20)
+        got = run_sharded().gather()
+
+        def plain():
+            return sharded.map(lambda blk: gf8_kernel.gf8_apply_plain(
+                op.bitmatrix, blk)).gather()
+        want = plain()
+        plain_ms, _ = cuda_time_ms(plain, 3)
+        err = int((want.to(torch.int16) - got.to(torch.int16)).abs().max())
+        if err or not torch.equal(got, whole):
+            raise AssertionError("sharded headline != plain or B1")
+        nbytes = data.numel() + whole.numel()
+        report["timing"] = {
+            "shape": [[STRIPES, K, CHUNK], [STRIPES, M, CHUNK]],
+            "sharded_ms": sh_ms, "sharded_runs_ms": sh_runs,
+            "launches_per_run": sh_launches, "staged_ms": st_ms,
+            "b1_ms": [b1_ms, b1_again], "plain_ms": plain_ms,
+            "max_abs_err": err, "bound_ms": nbytes / HBM_BPS * 1e3,
+            "bound_by": "bytes"}
+        print(f"mesh timing on {card()}: sharded headline encode "
+              f"{sh_ms:.4f} ms median of 20 ({sh_launches:g} B1 launches, "
+              f"blocks [{STRIPES // 2}, {K}, {CHUNK // 2}]); with the "
+              f"shard and gather copies {st_ms:.4f} ms; single-device B1 "
+              f"{b1_ms:.4f} / {b1_again:.4f} ms; bound "
+              f"{nbytes / HBM_BPS * 1e3:.4f} ms (bytes); plain "
+              f"{plain_ms:.4f} ms; max abs err {err}")
+    except Exception as e:  # every failure ends the child non-zero
+        import traceback
+        traceback.print_exc()
+        return fail(f"mesh child: {type(e).__name__}: {e}")
+    report["seconds"] = time.monotonic() - t_start
+    print(json.dumps({"mesh": report}))
+    return 0
+
+
+def mesh_path() -> dict:
+    """Run mesh_child in its own process with
+    CEPH_TPU_TORCH_FORCE_DEVICE_COUNT=MESH_SHARDS, its output in
+    chiprun_out/mesh.log, reusing the kernels this process built; fail
+    on a non-zero exit or on fewer than MESH_SHARDS B1 launches in any
+    sharded dispatch.  -> the child's report."""
+    logs = os.path.join(HERE, "chiprun_out")
+    os.makedirs(logs, exist_ok=True)
+    log_path = os.path.join(logs, "mesh.log")
+    env = dict(os.environ, PYTHONPATH=HERE,
+               CEPH_TPU_TORCH_FORCE_DEVICE_COUNT=str(MESH_SHARDS))
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        try:
+            rc = subprocess.run(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--mesh-child"], cwd=HERE, env=env, stdout=log,
+                stderr=subprocess.STDOUT, timeout=MESH_CHILD_S).returncode
+        except subprocess.TimeoutExpired:
+            rc = f"none: killed after {MESH_CHILD_S} s"
+    wall = time.monotonic() - t0
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    report = None
+    for line in lines:
+        if line.startswith('{"mesh": '):
+            report = json.loads(line)["mesh"]
+        elif line.startswith(("mesh", "dryrun")):
+            print(line)
+    if rc != 0 or report is None:
+        raise AssertionError(f"mesh child: exit {rc}, see "
+                             f"chiprun_out/mesh.log; its last lines:\n"
+                             + "\n".join(lines[-25:]))
+    for name, n in report["dispatch_launches"].items():
+        if n < MESH_SHARDS:
+            raise AssertionError(f"mesh {name}: {n} B1 launches, fewer "
+                                 f"than dp x sp = {MESH_SHARDS}")
+    bat = report["batcher"]
+    if bat["launches"] < MESH_SHARDS * bat["calls"]:
+        raise AssertionError(f"mesh batcher: {bat['launches']} B1 launches "
+                             f"in {bat['calls']} calls")
+    report["wall"] = wall
+    print(f"mesh phase: {wall:.1f} s in its child, CUDA set-up included "
+          f"(its driven part {report['seconds_driven']:.1f} s); B1 "
+          f"launches {report['launches']}")
+    return report
+
+
 # phase -> the kernel its path must launch (None: no codec kernel)
 PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "ecutil": "B1", "pkt_encode": "B2",
@@ -3711,7 +4088,9 @@ PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "plugins_lrc_decode_global": "B1",
                 "plugins_clay_encode": "B1", "plugins_clay_decode": "B1",
                 "plugins_clay_repair": "B1", "plugins_corpus_lrc": "B1",
-                "plugins_corpus_clay": "B1"}
+                "plugins_corpus_clay": "B1",
+                # the sharded dispatches of the mesh phase's child
+                "mesh": "B1"}
 PHASE_KERNEL.update({f"ecbackend_{name}_{step}": "B1"
                      for name, *_ in CODEC_PGS
                      for step in ("write", "degraded", "recovery")})
@@ -3777,6 +4156,8 @@ def main() -> int:
         run = main_path(torch, np, registry, ecutil, engine, counts)
         pkt = packet_path(torch, np, registry, ecutil, engine, counts)
         elapsed("the codec paths")
+        mesh = mesh_path()
+        elapsed("the mesh phase")
         plug = plugins_path(torch, np, registry, counts)
         elapsed("the plugins phase")
         bat, batcher = batcher_path(torch, np, registry, ecutil, counts)
@@ -3799,6 +4180,7 @@ def main() -> int:
                            CLASSIC_OBJS, osd_backend="classic")
         elapsed("the classic cluster phase")
         launches = {**run["launches"], **pkt["launches"],
+                    "mesh": {"B1": mesh["launches"], "B2": 0, "B3": 0},
                     **plug["launches"], **bat, "store": store["launches"],
                     **ecb["launches"], **tools, **cri, **clu}
         for phase, n in launches.items():
@@ -3916,4 +4298,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_child() if sys.argv[1:] == ["--mesh-child"] else main())

@@ -807,3 +807,40 @@ def test_crimson_cluster_with_mgr_stripes_on_cuda(card):
                                         for _, o in osds) > 0
         assert sum(o.encode_batcher.cpu_reqs + o.encode_batcher.device_errors
                    for _, o in osds) == 0
+
+
+@pytest.mark.cuda
+def test_sharded_encode_on_four_logical_shards_equals_b1(card, monkeypatch):
+    """Four logical shards of the card (dp=2 x sp=2): the sharded encode
+    launches B1 once a block and equals one B1 launch over the whole
+    batch; a backend's async encode rides the mesh and equals it too."""
+    from ceph_tpu_torch.ops.torch_engine import TorchBackend
+    from ceph_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setenv(pmesh.FORCE_DEVICE_COUNT, "4")
+    pmesh.reset()
+    try:
+        mesh = pmesh.make_mesh(device=card)
+        assert pmesh.mesh_info(mesh) == {"dp": 2, "sp": 2, "n_devices": 4,
+                                         "device_ids": [0, 1, 2, 3]}
+        rows, bits = row_sets(8, 4)[0]
+        rng = np.random.default_rng(44)
+        host = rng.integers(0, 256, (6, 8, 8192), dtype=np.uint8)
+        data = torch.from_numpy(host).to(card)
+        whole = gf8_kernel.gf8_apply(carry.carry_rows(rows, bits, card), data)
+        fn = pmesh.sharded_rows_fn(mesh, rows)
+        sharded = pmesh.shard_batch(mesh, data)
+        before = gf8_kernel.launches
+        out = fn(sharded).gather()
+        torch.cuda.synchronize()
+        assert gf8_kernel.launches == before + 4
+        assert torch.equal(out, whole)
+        be = TorchBackend(card)
+        assert be.mesh_info()["n_devices"] == 4
+        before = gf8_kernel.launches
+        ab = be.apply_gf8_matrix_async(rows, host[:5])
+        assert np.array_equal(ab.wait(), whole[:5].cpu().numpy())
+        assert gf8_kernel.launches == before + 4
+        assert [led["device"] for led in ab.ledgers] == [0, 1, 2, 3]
+    finally:
+        pmesh.reset()

@@ -228,9 +228,9 @@ def test_importlib_name_check_sees_the_reference_loader(tmp_path):
 
 # Modules of the JAX package that the port does not hold, as paths
 # under the package.  The list only shrinks: the client services
-# (rbd/, rgw/, fs/, mds/) and then the command-line tools (tools/) left
-# it when they were ported; the device mesh remains.
-UNPORTED_MODULES = frozenset(["parallel/__init__.py", "parallel/mesh.py"])
+# (rbd/, rgw/, fs/, mds/), the command-line tools (tools/) and last the
+# device mesh (parallel/) left it when they were ported, so it is empty.
+UNPORTED_MODULES = frozenset()
 TOOLS = ("__init__", "bench_sweep", "ceph_cli", "cephadm", "cephfs_cli",
          "common", "crushtool", "ec_benchmark", "ec_non_regression",
          "ec_tool", "objectstore_tool", "osdmaptool", "rados_cli",
@@ -247,14 +247,32 @@ def _py_files(root):
 
 def test_unported_modules_are_the_frozen_list():
     """The JAX package's modules that the port lacks are exactly the
-    unported list and the replaced modules, each replacement present."""
+    replaced modules, each replacement present: the unported list is
+    empty, and the device mesh imports with ``jax`` and ``ceph_tpu``
+    blocked."""
     ref = _py_files(os.path.join(REPO, "ceph_tpu"))
     port = _py_files(PKG)
+    assert UNPORTED_MODULES == frozenset()
     assert ref - port == UNPORTED_MODULES | set(REPLACED_MODULES)
     assert set(REPLACED_MODULES.values()) <= port
-    assert {m.split("/")[0] for m in UNPORTED_MODULES} == {"parallel"}
-    for pkg in ("rbd", "rgw", "fs", "mds", "tools"):
+    for pkg in ("rbd", "rgw", "fs", "mds", "tools", "parallel"):
         assert {m for m in ref if m.startswith(pkg + "/")} <= port, pkg
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ceph_tpu'] = None\n"
+        "from ceph_tpu_torch.parallel import dryrun, mesh\n"
+        "assert mesh.resolve_mesh(device='cpu') is None\n"
+        "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
+        " or n == 'ceph_tpu' or n.startswith('ceph_tpu.')]\n"
+        "assert all(sys.modules[n] is None for n in bad), bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("CEPH_TPU_TORCH_FORCE_DEVICE_COUNT", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 def test_every_tool_imports_with_jax_and_ceph_tpu_blocked():
