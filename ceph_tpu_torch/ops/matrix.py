@@ -259,14 +259,9 @@ def shec_coding_matrix(k: int, m: int, c: int, w: int,
 def constant_to_bitmatrix(e: int, w: int) -> np.ndarray:
     """w x w 0/1 matrix B with B[r, c] = bit r of (e * 2^c): product bits
     are GF(2)-linear in the input bits."""
-    f = gf(w)
-    B = np.zeros((w, w), dtype=np.uint8)
-    col = e
-    for c in range(w):
-        for r in range(w):
-            B[r, c] = (col >> r) & 1
-        col = f.mul(col, 2) if w <= 16 else f._mul_slow(col, 2)
-    return B
+    # column c is e * x^c, and x^c is the element 1 << c
+    cols = gf(w).mul(e, 1 << np.arange(w, dtype=np.int64)).astype(np.int64)
+    return ((cols[None, :] >> np.arange(w)[:, None]) & 1).astype(np.uint8)
 
 
 def matrix_to_bitmatrix(M: np.ndarray, w: int) -> np.ndarray:

@@ -574,6 +574,9 @@ class EncodeBatcher:
         self.delta_cpu_reqs = 0      # delta requests on the CPU twin
         self.encode_errors = 0       # encode/continuation failures
         self.device_errors = 0       # classified device failures
+        # groups a classified device failure handed to the CPU twin,
+        # by lane
+        self.fault_twin_groups = {"encode": 0, "decode": 0, "delta": 0}
         self._cpu_twins: Dict[Tuple, object] = {}  # device-failure path
         self._dec_threads: List[threading.Thread] = []
         self._warm_threads: List[threading.Thread] = []
@@ -1203,13 +1206,20 @@ class EncodeBatcher:
                      reqs=len(reqs),
                      crossover=int(EncodeBatcher._min_device_bytes))
 
-    def _device_failure(self, kind: str) -> None:
+    def _device_failure(self, kind: str, lane: str, nreqs: int) -> None:
         """Record one classified device failure (post-retry); opens
         the breaker after ``ec_tpu_device_error_threshold``
-        consecutive failures."""
+        consecutive failures.  ``lane`` names the group of ``nreqs``
+        requests the CPU twin now serves in the device's place,
+        counted in ``fault_twin_groups`` with one ``fault_twin``
+        flight-recorder event."""
         self.device_errors += 1
         if self.bperf is not None:
             self.bperf.inc("device_errors")
+        self.fault_twin_groups[lane] += 1
+        if self.recorder is not None:
+            self.recorder.note("fault_twin", lane=lane, reason=kind,
+                               reqs=nreqs)
         opened = False
         cls = EncodeBatcher
         with cls._breaker_lock:
@@ -1580,7 +1590,16 @@ class EncodeBatcher:
             except Exception:
                 rec = None
                 if not on_twin:
-                    self._device_failure("decode")
+                    self._device_failure("decode", "decode", len(reqs))
+                    try:
+                        twin = self.cpu_twin(reqs[0].ec_impl, sinfo)
+                    except Exception:
+                        twin = None
+                    if twin is not None:
+                        # the CPU twin serves the group in the
+                        # device's place, as after a failed dispatch
+                        self._exec_group_dec(key, reqs, twin, True)
+                        return
         if rec is None:
             # group decode trouble: per-request fallback
             for r in reqs:
@@ -1783,7 +1802,7 @@ class EncodeBatcher:
                     time.sleep(min(delay, 0.1))
                     delay *= 2
         if handles is None:
-            self._device_failure("dispatch")
+            self._device_failure("dispatch", "decode", len(reqs))
             return None
         t_disp = time.monotonic()
         EncodeBatcher._last_device_ts = t_disp
@@ -1841,7 +1860,7 @@ class EncodeBatcher:
                             0.7 * EncodeBatcher._h2d_bps + 0.3 * bps)
         except Exception:
             rec = None
-            self._device_failure("completion")
+            self._device_failure("completion", "decode", len(reqs))
         if rec is None:
             self._complete_group_dec_twin(key, reqs)
             return
@@ -2102,7 +2121,7 @@ class EncodeBatcher:
                     time.sleep(min(delay, 0.1))
                     delay *= 2
         if handles is None:
-            self._device_failure("dispatch")
+            self._device_failure("dispatch", "delta", len(reqs))
             return None
         t_disp = time.monotonic()
         EncodeBatcher._last_device_ts = t_disp
@@ -2213,7 +2232,7 @@ class EncodeBatcher:
                             0.7 * EncodeBatcher._h2d_bps + 0.3 * bps)
         except Exception:
             parity = None
-            self._device_failure("completion")
+            self._device_failure("completion", "delta", len(reqs))
         if parity is None:
             self._complete_group_delta_twin(key, reqs)
             return
@@ -2524,7 +2543,7 @@ class EncodeBatcher:
                     time.sleep(min(delay, 0.1))
                     delay *= 2
         if handles is None:
-            self._device_failure("dispatch")
+            self._device_failure("dispatch", "encode", len(reqs))
             return None
         t_disp = time.monotonic()
         EncodeBatcher._last_device_ts = t_disp
@@ -2718,19 +2737,24 @@ class EncodeBatcher:
                 # cannot be re-waited, so no retry here — the CPU
                 # twin serves the group and the breaker learns)
                 parity = None
-                self._device_failure("completion")
+                self._device_failure("completion", "encode", len(reqs))
         if parity is None:
             # device trouble: encode each request on a REAL CPU path
             # (a jerasure twin of the same geometry — bit-exact by the
             # corpus contract, and free of the broken device).  A
             # request that still cannot encode gets cb(None) so the
-            # write op fails with EIO instead of hanging.
+            # write op fails with EIO instead of hanging.  Counted as
+            # CPU requests, as the decode and delta twins count theirs.
+            if self.bperf is not None:
+                self.bperf.inc("cpu_reqs", len(reqs))
             for r in reqs:
                 try:
                     chunks = self._cpu_encode(r)
                 except Exception:
                     self._cb_error()
                     chunks = None
+                self.reqs_total += 1
+                self.cpu_reqs += 1
                 try:
                     r.done = True
                     r.cb(chunks)

@@ -48,6 +48,15 @@ Phases, each of which must pass or the script exits non-zero:
      calls than requests in each lane, no group served by the twin, no
      device error and the breaker never open; one line per lane with
      its calls, host-to-host rate, launches and overlap share;
+  5b. the faults phase, in a child process (``--faults-child``, output in
+     chiprun_out/faults.log): a batcher as in phase 5 with every device
+     dispatch failing through its encode, decode and delta lanes (each
+     from a closed breaker, so each lane's dispatch site trips), every
+     op byte-equal to jerasure and the breaker open; in each lane one
+     completion fault that abandons a live handle, the probe that
+     readmits the card, and a clean pass on B1; the JAX package's seeded
+     chaos smoke
+     on a 3-OSD cluster; the staging ring idle after the drain;
   6. drive the store (ceph_tpu_torch/store/bluestore.py): one RAM
      BlueStore with its defaults, wired to the batcher of phase 5 as an
      OSD wires it (attach_device_batcher), takes 64 writes of 4 MiB from
@@ -144,6 +153,7 @@ Phases, each of which must pass or the script exits non-zero:
      the LRC and CLAY PGs' writes, degraded reads and recoveries, the
      tools phase's ec_benchmark k=8 m=4 runs, corpus, ec_tool and sweep,
      and every step of both cluster phases and the crimson striper step,
+     the faults child's probes and clean pass,
      B2 on the packetsize-2048 phases (the tools phase's too), the corpus, the batcher's packet lane, the ECBackend's
      cauchy_good pool and the clusters' cauchy_good pools, B3 on the
      packetsize-1000 phases;
@@ -4070,6 +4080,400 @@ def mesh_path() -> dict:
     return report
 
 
+FAULT_OPS = 16             # ops of 4 MiB a lane under armed device faults
+FAULT_PROBES = 64          # single writes allowed to reach a probe
+CHAOS_OSDS = 3             # the JAX package's chaos recipe
+CHAOS_SPEC = "device.dispatch:error:1in20"
+CHAOS_SEED = 42
+CHAOS_OBJS = 12
+CHAOS_BYTES = 32 << 10
+FAULTS_CHILD_S = 120       # the child is killed past this
+LANES = ("encode", "decode", "delta")
+
+
+def faults_drive(torch, np, dev: str) -> dict:
+    """The faults phase on ``dev``; see faults_child.  Raises on any
+    output that is not byte-equal or any count the fault route must
+    show; the launch counts are the caller's to check (the CPU runs
+    B1's plain version and counts none).  -> the report."""
+    import threading
+
+    from ceph_tpu_torch.cluster import Cluster, test_config
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.ec.plugins import gpu as gpumod
+    from ceph_tpu_torch.ops import gf8_kernel
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.osd.batcher import EncodeBatcher
+    from ceph_tpu_torch.utils import faults as faultlib
+    from ceph_tpu_torch.utils.config import default_config
+    from ceph_tpu_torch.utils.flight_recorder import FlightRecorder
+    from ceph_tpu_torch.utils.perf import PerfCountersCollection
+
+    reg = faultlib.registry()
+    counts = _Since(gf8_kernel)
+    pool = gpumod.shared_backend(dev).staging
+    stalls0 = pool.stats()["stall_allocs"]
+    report = {}
+    codec = registry.instance().factory(
+        "gpu", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
+                "device": dev})
+    sinfo = ecutil.StripeInfo(K, K * CHUNK)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen).cpu().numpy()
+
+    nst = FAULT_OPS * OBJ_STRIPES
+    objs = rand(FAULT_OPS, OBJ_STRIPES * K * CHUNK)
+    stripes = objs.reshape(nst, K, CHUNK)
+    deltas = rand(nst, len(DIRTY), CHUNK)
+
+    def rows(i):
+        return slice(i * OBJ_STRIPES, (i + 1) * OBJ_STRIPES)
+
+    conf = default_config()
+    for name, value in (("ec_tpu_batch_stripes", BATCH_STRIPES),
+                        ("ec_tpu_queue_window_us", BATCH_WINDOW_US),
+                        ("ec_tpu_fallback_cpu", False)):
+        conf.set(name, value)
+    reg.reset()
+    EncodeBatcher.reset_learning()
+    coll = PerfCountersCollection()
+    rec = FlightRecorder(capacity=4096, name="osd.0")
+    b = EncodeBatcher(conf, perf_coll=coll, recorder=rec)
+    try:
+        twin = b.cpu_twin(codec, sinfo)
+        parity = twin.encode_batch(stripes)
+        dpar = twin.core.delta_parity(deltas, DIRTY)
+        # the same values through B1 before any site is armed
+        if not (np.array_equal(codec.encode_batch_async(stripes).wait(),
+                               parity)
+                and np.array_equal(codec.delta_encode_batch_async(
+                    deltas, DIRTY).wait(), dpar)):
+            raise AssertionError("faults: B1 != jerasure before arming")
+
+        def chunks(i):
+            p = parity[rows(i)]
+            return {s: np.ascontiguousarray(
+                stripes[rows(i), s] if s < K else p[:, s - K]).reshape(-1)
+                for s in range(K + M)}
+        want = {"encode": chunks,
+                "decode": lambda i: {e: chunks(i)[e] for e in ERASED},
+                "delta": lambda i: {K + j: np.ascontiguousarray(
+                    dpar[rows(i), j]).reshape(-1) for j in range(M)}}
+        submit = {
+            "encode": lambda i, cb: b.submit(codec, sinfo, objs[i], cb),
+            "decode": lambda i, cb: b.submit_decode(
+                codec, sinfo, {s: c for s, c in chunks(i).items()
+                               if s not in ERASED}, set(ERASED), cb),
+            "delta": lambda i, cb: b.submit_delta(
+                codec, sinfo, deltas[rows(i)], DIRTY, cb)}
+
+        def check(lane, i, got):
+            for s, arr in want[lane](i).items():
+                if not np.array_equal(np.frombuffer(got[s], np.uint8), arr):
+                    raise AssertionError(f"faults {lane}: op {i} shard {s} "
+                                         f"!= jerasure")
+
+        def lanes(which=LANES) -> dict:
+            """FAULT_OPS ops of each lane from BATCH_THREADS threads,
+            each checked; -> B1 launches by lane."""
+            out = {}
+            for lane in which:
+                r = run_lane(b, submit[lane], FAULT_OPS, counts, lane)
+                for i, got in enumerate(r["out"]):
+                    check(lane, i, got)
+                out[lane] = r["launches"]["B1"]
+            return out
+
+        def routes():
+            """The reason-coded routing verdicts so far, by counter."""
+            return {k: v for k, v in coll.perf_dump()["ec_device"].items()
+                    if "route_" in k and v}
+
+        def one(lane, i):
+            """One op of ``lane``, alone in its group; -> B1 launches."""
+            got, ev = {}, threading.Event()
+            counts.reset()
+            submit[lane](i, lambda c: (got.update(c=c), ev.set()))
+            if not ev.wait(60) or got["c"] is None:
+                raise AssertionError(f"faults: a single {lane} op failed")
+            check(lane, i, got["c"])
+            return counts.read()["B1"]
+
+        def twin_reqs():
+            return {"encode": b.cpu_reqs, "decode": b.dec_cpu_reqs,
+                    "delta": b.delta_cpu_reqs}
+
+        # 1. every dispatch fails.  Each lane starts with the breaker
+        #    closed, so each lane's dispatch site trips; then single
+        #    writes until the breaker is open for step 2.
+        t0 = time.monotonic()
+        reg.arm(faultlib.DEVICE_DISPATCH, mode="error", every=1)
+        launches, opens = {}, 0
+        for lane in LANES:
+            opens += EncodeBatcher._breaker_opens
+            EncodeBatcher.reset_breaker()
+            launches.update(lanes((lane,)))
+        for n in range(FAULT_PROBES):
+            if EncodeBatcher._breaker_open:
+                break
+            launches["encode"] += one("encode", n % FAULT_OPS)
+        opens += EncodeBatcher._breaker_opens
+        reg.disarm(faultlib.DEVICE_DISPATCH)
+        events = [e for e in rec.dump() if e["kind"] == "fault_twin"]
+        r1 = {"seconds": time.monotonic() - t0,
+              "trips": reg.trips(faultlib.DEVICE_DISPATCH),
+              "device_errors": b.device_errors,
+              "fault_twin_groups": dict(b.fault_twin_groups),
+              "reasons": sorted({e["reason"] for e in events}),
+              "twin_reqs": twin_reqs(), "routes": routes(),
+              "breaker_opens": opens,
+              "breaker_open": EncodeBatcher._breaker_open,
+              "launches": launches}
+        report["dispatch"] = r1
+        # every group sent to the device came back a fault-twin group
+        to_device = sum(v for k, v in r1["routes"].items() if not k.endswith(
+            ("breaker_open", "pin", "learned")))
+        if r1["trips"] < 1 or r1["device_errors"] < 1 \
+                or any(r1["fault_twin_groups"][lane] < 1 for lane in LANES) \
+                or sum(r1["fault_twin_groups"].values()) != to_device \
+                or sum(r1["fault_twin_groups"].values()) \
+                != r1["device_errors"] or r1["reasons"] != ["dispatch"] \
+                or r1["breaker_opens"] < 1 \
+                or not r1["breaker_open"] or any(launches.values()) \
+                or any(r1["twin_reqs"][lane] < FAULT_OPS for lane in LANES):
+            raise AssertionError(f"faults, every dispatch failing: {r1}")
+        print(f"faults dispatch: {FAULT_OPS} writes, degraded reads and "
+              f"overwrites of 4 MiB, each lane from a closed breaker, in "
+              f"{r1['seconds']:.3f} s, every one byte-equal to jerasure; "
+              f"trips {r1['trips']}, device errors {r1['device_errors']}, "
+              f"groups the twin served after a fault "
+              f"{r1['fault_twin_groups']}, requests on the twin "
+              f"{r1['twin_reqs']}, breaker opens {r1['breaker_opens']}, "
+              f"route verdicts {r1['routes']}, B1 launches {launches}")
+
+        # 2. one completion fault on a live handle in each lane: single
+        #    ops until a probe through the open breaker reaches the
+        #    device and its handle is abandoned at completion; the
+        #    encode lane goes last and on until a probe readmits
+        t0 = time.monotonic()
+        errors = b.device_errors
+        groups0 = dict(b.fault_twin_groups)
+        probes, readmit = {}, None
+        for lane in ("decode", "delta", "encode"):
+            trips = reg.trips(faultlib.DEVICE_COMPLETION)
+            reg.arm(faultlib.DEVICE_COMPLETION, mode="error", one_shot=True)
+            for n in range(FAULT_PROBES):
+                launched = one(lane, n % FAULT_OPS)
+                if reg.trips(faultlib.DEVICE_COMPLETION) > trips:
+                    probes[lane] = {"ops": n + 1, "launches": launched}
+                    break
+        for n in range(FAULT_PROBES):
+            launched = one("encode", n % FAULT_OPS)
+            if not EncodeBatcher._breaker_open:
+                readmit = {"ops": n + 1, "launches": launched}
+                break
+        events = [e for e in rec.dump() if e["kind"] == "fault_twin"
+                  and e["reason"] == "completion"]
+        r2 = {"seconds": time.monotonic() - t0, "probes": probes,
+              "readmit": readmit,
+              "completion_trips": reg.trips(faultlib.DEVICE_COMPLETION),
+              "device_errors": b.device_errors - errors,
+              "completion_lanes": sorted(e["lane"] for e in events),
+              "fault_twin_groups": {lane: b.fault_twin_groups[lane]
+                                    - groups0[lane] for lane in LANES},
+              "routes": routes(),
+              "breaker_closes": EncodeBatcher._breaker_closes}
+        report["completion"] = r2
+        if sorted(probes) != sorted(LANES) or readmit is None \
+                or r2["device_errors"] != 3 \
+                or r2["completion_trips"] != 3 \
+                or r2["completion_lanes"] != sorted(LANES) \
+                or any(v != 1 for v in r2["fault_twin_groups"].values()) \
+                or any(r2["routes"].get(f"{p}route_breaker_probe", 0) < 1
+                       for p in ("", "dec_", "delta_")) \
+                or r2["routes"].get("route_breaker_probe", 0) < 2 \
+                or r2["breaker_closes"] != 1:
+            raise AssertionError(f"faults, one completion fault a lane: {r2}")
+        errors = b.device_errors
+        t0 = time.monotonic()
+        clean = lanes()
+        report["clean"] = {"seconds": time.monotonic() - t0,
+                           "launches": clean,
+                           "device_errors": b.device_errors - errors}
+        if b.device_errors != errors or EncodeBatcher._breaker_open:
+            raise AssertionError(f"faults, clean pass: {report['clean']}")
+        print(f"faults completion: in each lane a probe through the open "
+              f"breaker launched B1 and its live handle was abandoned at "
+              f"completion, the twin serving it byte-equal (ops to the "
+              f"probe and its launches {probes}); the encode probe "
+              f"{readmit['ops']} writes later readmitted the device "
+              f"(B1 {readmit['launches']}); then {3 * FAULT_OPS} clean ops "
+              f"in {report['clean']['seconds']:.3f} s, B1 launches {clean}, "
+              f"no new device error; route verdicts {r2['routes']}")
+    finally:
+        b.stop()
+
+    # 3. the reference's chaos smoke on the card
+    reg.reset()
+    EncodeBatcher.reset_learning()
+    t0 = time.monotonic()
+    cconf = test_config(fault_injection=CHAOS_SPEC,
+                        fault_injection_seed=CHAOS_SEED,
+                        ec_tpu_fallback_cpu=False)
+    counts.reset()
+    with Cluster(n_osds=CHAOS_OSDS, conf=cconf) as c:
+        for i in range(CHAOS_OSDS):
+            c.wait_for_osd_up(i, 60)
+        c.create_ec_profile("chaos", plugin="gpu", k="2", m="1",
+                            device=dev)
+        c.create_pool("chp", "erasure", erasure_code_profile="chaos")
+        io = c.rados().open_ioctx("chp")
+        blob = bytes(rand(CHAOS_BYTES))
+        for i in range(CHAOS_OBJS):
+            io.write_full(f"c{i}", blob)
+        for i in range(CHAOS_OBJS):
+            if io.read(f"c{i}") != blob:
+                raise AssertionError(f"faults chaos: c{i} read back wrong")
+        ret, _, out = c.osds[0]._exec_command({"prefix": "perf dump"})
+        cnt = reg.counters()
+        batchers = [o.encode_batcher for o in c.osds.values()
+                    if o is not None]
+        r3 = {"seconds": time.monotonic() - t0, "perf_dump": out.get(
+                  "faults"), "registry": cnt,
+              "device_errors": sum(x.device_errors for x in batchers),
+              "fault_twin_groups": sum(sum(x.fault_twin_groups.values())
+                                       for x in batchers),
+              "launches": counts.read()["B1"]}
+    report["chaos"] = r3
+    if ret != 0 or r3["perf_dump"] != cnt \
+            or cnt[faultlib.DEVICE_DISPATCH]["hits"] < 1 \
+            or cnt[faultlib.DEVICE_DISPATCH]["armed"] != 1 \
+            or r3["fault_twin_groups"] != r3["device_errors"]:
+        raise AssertionError(f"faults chaos: {r3}")
+    d = cnt[faultlib.DEVICE_DISPATCH]
+    print(f"faults chaos: {CHAOS_OSDS} OSDs, a gpu k=2 m=1 pool, "
+          f"{CHAOS_SPEC} at seed {CHAOS_SEED}: {CHAOS_OBJS} writes of "
+          f"{CHAOS_BYTES >> 10} KiB read back in {r3['seconds']:.3f} s; "
+          f"device.dispatch hits {d['hits']}, trips {d['trips']}, device "
+          f"errors {r3['device_errors']}, groups the twin served after a "
+          f"fault {r3['fault_twin_groups']}; osd.0's perf dump faults "
+          f"block equals the registry; B1 launches {r3['launches']}")
+    reg.reset()
+
+    # 4. after the drain: no slot in flight, none stall-grown
+    st = pool.stats()
+    report["staging"] = {"in_flight": st["in_flight"],
+                         "stall_allocs": st["stall_allocs"] - stalls0,
+                         "slots": st["slots"]}
+    if st["in_flight"] or st["stall_allocs"] != stalls0:
+        raise AssertionError(f"faults staging after the drain: {st}")
+    print(f"faults staging after the drain: {report['staging']}")
+    return report
+
+
+def faults_child() -> int:
+    """The faults phase, run as ``chip_smoke.py --faults-child``: in its
+    own process, since the fault registry and the breaker are
+    process-wide and the parent's later phases assert that neither
+    fired.  On the card, at the headline geometry (k=8 m=4 reed_sol_van,
+    objects of 4 MiB):
+      1. one EncodeBatcher built as in phase 5, with device.dispatch
+         armed on every call: FAULT_OPS writes, FAULT_OPS degraded reads
+         with shards ERASED lost and FAULT_OPS overwrites of columns
+         DIRTY, from BATCH_THREADS threads, the breaker closed at the
+         start of each lane, each op byte-equal to jerasure (which B1
+         matched before the site was armed); device errors, trips, at
+         least one group of every lane the CPU twin served after a
+         fault, reason-coded twin verdicts, then single writes until
+         the breaker is open, and no device call;
+      2. the site disarmed and device.completion armed once a lane, for
+         decode, delta and encode in turn: single ops until a probe
+         through the open breaker launches B1 and its live handle is
+         abandoned at completion (the twin serves it); then single
+         writes until the next probe readmits the device; then the
+         3 x FAULT_OPS ops again, B1 launched in every lane and no new
+         device error;
+      3. the JAX package's chaos smoke: CHAOS_OSDS OSDs, a `gpu` k=2 m=1
+         pool, CHAOS_SPEC at seed CHAOS_SEED, CHAOS_OBJS writes of 32
+         KiB read back, osd.0's perf dump `faults` block equal to the
+         registry's counters;
+      4. after the drain, the shared backend's staging ring idle
+         (in_flight 0) and grown by no stall.
+    Prints one JSON line {"faults": {...}}; exits non-zero on any
+    failure."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        return fail("CUDA is not available")
+    sys.path.insert(0, HERE)
+    from ceph_tpu_torch.ops import gf8_kernel
+    t_start = time.monotonic()
+    try:
+        base = gf8_kernel.launches
+        report = faults_drive(torch, np, DEV)
+        report["launches"] = gf8_kernel.launches - base
+        clean = report["clean"]["launches"]
+        probes = report["completion"]["probes"]
+        if any(probes[lane]["launches"] < 1 for lane in LANES) \
+                or report["completion"]["readmit"]["launches"] < 1 \
+                or any(clean[lane] < 1 for lane in LANES):
+            raise AssertionError(f"faults: B1 not launched where the "
+                                 f"device served: {report}")
+    except Exception as e:  # every failure ends the child non-zero
+        import traceback
+        traceback.print_exc()
+        return fail(f"faults child: {type(e).__name__}: {e}")
+    report["seconds"] = time.monotonic() - t_start
+    print(json.dumps({"faults": report}))
+    return 0
+
+
+def faults_path() -> dict:
+    """Run faults_child in its own process, its output in
+    chiprun_out/faults.log, reusing the kernels this process built; fail
+    on a non-zero exit or a missing report.  -> the child's report."""
+    logs = os.path.join(HERE, "chiprun_out")
+    os.makedirs(logs, exist_ok=True)
+    log_path = os.path.join(logs, "faults.log")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        try:
+            rc = subprocess.run(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--faults-child"], cwd=HERE, env=env, stdout=log,
+                stderr=subprocess.STDOUT, timeout=FAULTS_CHILD_S).returncode
+        except subprocess.TimeoutExpired:
+            rc = f"none: killed after {FAULTS_CHILD_S} s"
+    wall = time.monotonic() - t0
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    report = None
+    for line in lines:
+        if line.startswith('{"faults": '):
+            report = json.loads(line)["faults"]
+        elif line.startswith("faults "):
+            print(line)
+    if rc != 0 or report is None:
+        raise AssertionError(f"faults child: exit {rc}, see "
+                             f"chiprun_out/faults.log; its last lines:\n"
+                             + "\n".join(lines[-25:]))
+    report["wall"] = wall
+    r1, r2 = report["dispatch"], report["completion"]
+    print(f"faults phase: {wall:.1f} s in its child, CUDA set-up included; "
+          f"trips {r1['trips']} dispatch, {r2['completion_trips']} "
+          f"completion; groups the twin served after a fault "
+          f"{r1['fault_twin_groups']} dispatch, {r2['fault_twin_groups']} "
+          f"completion; breaker opens "
+          f"{r1['breaker_opens']}, readmits {r2['breaker_closes']}; B1 "
+          f"launches {report['launches']} (clean pass "
+          f"{report['clean']['launches']})")
+    return report
+
+
 # phase -> the kernel its path must launch (None: no codec kernel)
 PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "ecutil": "B1", "pkt_encode": "B2",
@@ -4090,7 +4494,9 @@ PHASE_KERNEL = {"encode": "B1", "decode": "B1", "delta": "B1",
                 "plugins_clay_repair": "B1", "plugins_corpus_lrc": "B1",
                 "plugins_corpus_clay": "B1",
                 # the sharded dispatches of the mesh phase's child
-                "mesh": "B1"}
+                "mesh": "B1",
+                # the probes and the clean pass of the faults child
+                "faults": "B1"}
 PHASE_KERNEL.update({f"ecbackend_{name}_{step}": "B1"
                      for name, *_ in CODEC_PGS
                      for step in ("write", "degraded", "recovery")})
@@ -4163,6 +4569,12 @@ def main() -> int:
         bat, batcher = batcher_path(torch, np, registry, ecutil, counts)
         elapsed("the batcher phase")
         try:
+            flt = faults_path()
+        except BaseException:
+            batcher.stop()
+            raise
+        elapsed("the faults phase")
+        try:
             store = store_path(torch, np, lambda: batcher._last_backend,
                                counts)
         finally:
@@ -4181,6 +4593,7 @@ def main() -> int:
         elapsed("the classic cluster phase")
         launches = {**run["launches"], **pkt["launches"],
                     "mesh": {"B1": mesh["launches"], "B2": 0, "B3": 0},
+                    "faults": {"B1": flt["launches"], "B2": 0, "B3": 0},
                     **plug["launches"], **bat, "store": store["launches"],
                     **ecb["launches"], **tools, **cri, **clu}
         for phase, n in launches.items():
@@ -4298,4 +4711,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(mesh_child() if sys.argv[1:] == ["--mesh-child"] else main())
+    sys.exit({"--mesh-child": mesh_child, "--faults-child": faults_child}
+             .get(" ".join(sys.argv[1:]), main)())

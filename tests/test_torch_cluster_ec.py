@@ -1,6 +1,7 @@
 """The port's daemons on erasure-coded pools, continued from
 tests/test_torch_cluster.py: port twins of the JAX package's EC pipeline
-tests (tests/test_ec_pipeline.py, the EC-pool ones), the cluster tests
+tests (tests/test_ec_pipeline.py, the EC-pool ones and the fast_read
+refusal on a replicated pool), the cluster tests
 of tests/test_rmw_delta.py and two of tests/test_scrub.py, each with
 the `gpu` plugin on the CPU (``device=cpu`` in the profile) and classic
 OSDs; then the north-star geometry, k=8 m=4 on 13 OSDs, on the port
@@ -159,6 +160,18 @@ def test_fast_read_survives_undetected_dead_shard():
         grace = c.conf["osd_heartbeat_grace"]
         assert elapsed < grace, \
             f"fast_read read took {elapsed:.1f}s >= grace {grace}s"
+
+
+def test_fast_read_rejected_on_replicated_pool():
+    """``fast_read`` is an EC pool flag: the monitor refuses it on a
+    replicated pool with -EINVAL."""
+    from ceph_tpu_torch.cluster import test_config as default_conf
+    with Cluster(n_osds=3, conf=default_conf()) as c:
+        c.create_pool("rp", "replicated")
+        rc, _, _ = c.mon_command(
+            {"prefix": "osd pool set", "pool": "rp",
+             "var": "fast_read", "val": "true"})
+        assert rc == -22
 
 
 def test_copy_budget_8mib_write(pipe):

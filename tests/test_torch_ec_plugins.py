@@ -267,6 +267,27 @@ def test_lrc_inner_gpu_plugin():
     assert e_cpu == e_gpu
 
 
+def test_lrc_inner_tpu_plugin():
+    """The reference's LRC over the `tpu` inner plugin, as the port runs
+    it: LRC over `gpu` (``device=cpu``) gives chunks byte-equal to the
+    JAX package's LRC over `tpu`, on the same layers and data, and
+    recovers a lost chunk of each local group and a global loss."""
+    layers_for = '[["DDcDDcDDc", "plugin=%s technique=reed_sol_van"]]'
+    base = {"mapping": "DD_DD_DD_"}
+    port = reg().factory("lrc", dict(base, layers=layers_for % "gpu",
+                                     device="cpu"))
+    ref = ref_registry.instance().factory(
+        "lrc", dict(base, layers=layers_for % "tpu"))
+    assert port.layers[0].profile["plugin"] == "gpu"
+    assert ref.layers[0].profile["plugin"] == "tpu"
+    rng = np.random.default_rng(4)
+    data = rng.integers(0, 256, 6000, dtype=np.uint8).tobytes()
+    enc = port.encode(set(range(9)), data)
+    assert enc == ref.encode(set(range(9)), data)
+    for lose in ((0,), (4,), (8,), (0, 4)):
+        roundtrip(port, data, lose)
+
+
 def test_lrc_validation():
     with pytest.raises(ErasureCodeValidationError):
         reg().factory("lrc", {"k": "4", "m": "2", "l": "5"})
